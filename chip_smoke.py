@@ -8,12 +8,14 @@ exits non-zero without a result line:
   1. card: name, power limit, torch / CUDA / nvcc versions;
   2. build: both kernels from tpufdtd_torch/csrc, with nvcc's -Xptxas -v lines;
   3. kernel A (single step) against its plain version, rims bitwise;
-  4. kernel B (K fused steps) against K plain steps, for K = 1..K_max;
+  4. kernel B (K fused steps) against K plain steps, for K = 1..K_max, at
+     the main path's 512^3 among other shapes;
   5. correctness gate: simulate() at 128^3 x 50 through kernel A against
-     the torch-f64 truth (rel-L2 < 1e-4);
+     the torch-f64 truth (rel-L2 < 1e-4), counting kernel A's launches;
   6. main path: Simulator at 512^3 x 50, one Ricker source, fast ring on
-     kernel B, against the f64 truth; ms/step, Gcell/s and % of HBM peak;
-     the same run on the plain "torch" backend.
+     kernel B, against the f64 truth, counting kernel B's launches;
+     ms/step, Gcell/s and % of HBM peak; the same run on the plain
+     "torch" backend.
 Then one JSON line per kernel set, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
@@ -24,10 +26,16 @@ import sys
 
 import numpy as np
 
-# Kernel against plain version: nvcc contracts a*b+c into FMAs and the
-# plain version does not, so each step differs by a few f32 ulp of the
-# field; 1e-5 of the field's largest magnitude bounds K <= 4 such steps.
+# Kernel against plain version. The bound is relative to the largest
+# stencil increment, want - (the same steps with the Laplacian left out),
+# not to the field: at the main path's dt = 1e-3, h = 0.1 the stencil adds
+# ~1e-4 of the field per step, and a field-relative bound would pass a
+# wrong stencil. CHECK_DT = 0.03 (dt/h = 0.3, stable at order 4) makes the
+# increment as large as the field; nvcc contracts a*b+c into FMAs and the
+# plain version does not, which costs ~1e-6 of the increment over K <= 4
+# steps, while a 1e-3 error in the radius-2 weight alone shows as ~3e-5.
 KERNEL_RTOL = 1e-5
+CHECK_DT = 0.03
 GATE_TOL = 1e-4  # rel-L2 against the f64 truth (harness/correctness.py)
 GATE_N = 128  # correctness gate grid (bench.py:43)
 MAIN_N = 512  # main-path grid (bench.py:60)
@@ -72,19 +80,21 @@ def interior_mask(grid, device):
     return mask
 
 
-def compare(name, got, want, untouched, mask) -> float:
-    """Max abs error on the interior (relative bound KERNEL_RTOL); the rim
-    must equal `untouched` bit for bit."""
+def compare(name, got, want, base, untouched, mask) -> float:
+    """Max abs error of `got` against `want`, bounded by KERNEL_RTOL times
+    the largest interior stencil increment |want - base|; the rim must
+    equal `untouched` bit for bit."""
     import torch
 
     rim = ~mask
     if not torch.equal(got[..., rim], untouched[..., rim]):
         raise AssertionError(f"{name}: a rim cell changed")
     err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if not np.isfinite(err) or err > KERNEL_RTOL * scale:
+    scale = float((want - base)[..., mask].abs().max())
+    if not np.isfinite(err) or not scale > 0 or err > KERNEL_RTOL * scale:
         raise AssertionError(f"{name}: max abs err {err:.3e} > {KERNEL_RTOL} * {scale:.3e}")
-    print(f"  {name}: max_abs_err {err:.3e} (field max {scale:.3e}), rims bitwise unchanged")
+    print(f"  {name}: max_abs_err {err:.3e} (stencil increment max {scale:.3e}),"
+          " rims bitwise unchanged")
     return err
 
 
@@ -103,11 +113,11 @@ def phase_kernel_a(tt, dev):
                              for _ in range(3))
         m = (1.5 + 0.5 * torch.rand(grid.padded_shape, generator=gen, device=dev)
              if mkind == "per-point" else 1.5)
-        got = A.leapfrog_step(cur, prev, m, target.clone(), grid=grid, dt=1e-3)
-        want = A.leapfrog_step_ref(cur, prev, m, target.clone(), grid=grid, dt=1e-3)
+        got = A.leapfrog_step(cur, prev, m, target.clone(), grid=grid, dt=CHECK_DT)
+        want = A.leapfrog_step_ref(cur, prev, m, target.clone(), grid=grid, dt=CHECK_DT)
         torch.cuda.synchronize()
         worst = max(worst, compare(f"A {shape} order {order} m {mkind}", got, want,
-                                   target, interior_mask(grid, dev)))
+                                   2 * cur - prev, target, interior_mask(grid, dev)))
     # time at the correctness gate's shape (order 4, scalar m)
     grid = tt.Grid3D(GATE_N, GATE_N, GATE_N)
     cur, prev, target = (torch.randn(grid.padded_shape, generator=gen, device=dev)
@@ -129,6 +139,22 @@ def _fast_pair(grid, gen, dev):
     return U, U.clone(), mask
 
 
+def _lap_free(U, k):
+    """[u_{n+K-1}, u_{n+K}] of K leapfrog steps with no Laplacian: the
+    linear extrapolation u_n + j (u_n - u_{n-1})."""
+    import torch
+
+    d = U[1] - U[0]
+    return torch.stack([U[1] + (k - 1) * d, U[1] + k * d])
+
+
+def check_b(B, grid, U, out, mask, k):
+    got = B.sweep_fused(U, out.clone(), grid=grid, dt=CHECK_DT, m_val=1.5, k_fuse=k)
+    want = B.sweep_fused_ref(U, grid=grid, dt=CHECK_DT, m_val=1.5, k_fuse=k)
+    name = f"B {grid.nx}x{grid.ny}x{grid.nz} h=({grid.hx},{grid.hy},{grid.hz}) K={k}"
+    return compare(name, got, want, _lap_free(U, k), out, mask)
+
+
 def phase_kernel_b(tt, dev):
     import torch
     from tpufdtd_torch.ops import stencil_sweep as B
@@ -137,21 +163,20 @@ def phase_kernel_b(tt, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     kmax = B.k_max()
     worst = 0.0
+    # 1100 x-planes span several x-chunks of a block at every K
+    # (stencil_sweep.TILES), as 512^3 does at K = 1
     grids = [tt.Grid3D(GATE_N, GATE_N, GATE_N), tt.Grid3D(17, 13, 11),
-             tt.Grid3D(17, 13, 11, hx=0.1, hy=0.05, hz=0.2)]
+             tt.Grid3D(17, 13, 11, hx=0.1, hy=0.05, hz=0.2), tt.Grid3D(1100, 12, 20)]
     for grid in grids:
         U, out, mask = _fast_pair(grid, gen, dev)
         for k in range(1, kmax + 1):
-            got = B.sweep_fused(U, out.clone(), grid=grid, dt=1e-3, m_val=1.5, k_fuse=k)
-            want = B.sweep_fused_ref(U, grid=grid, dt=1e-3, m_val=1.5, k_fuse=k)
-            torch.cuda.synchronize()
-            name = f"B {grid.nx}x{grid.ny}x{grid.nz} h=({grid.hx},{grid.hy},{grid.hz}) K={k}"
-            worst = max(worst, compare(name, got, want, out, mask))
-    # time at the main path's shape
+            worst = max(worst, check_b(B, grid, U, out, mask, k))
+    # the main path's shape: checked, then timed
     grid = tt.Grid3D(MAIN_N, MAIN_N, MAIN_N)
-    U, out, _ = _fast_pair(grid, gen, dev)
+    U, out, mask = _fast_pair(grid, gen, dev)
     per_k = {}
     for k in range(1, kmax + 1):
+        worst = max(worst, check_b(B, grid, U, out, mask, k))
         ms = cuda_ms(lambda: B.sweep_fused(U, out, grid=grid, dt=1e-3, m_val=1.5, k_fuse=k), 10)
         per_k[k] = ms
         print(f"  B at {MAIN_N}^3 K={k}: {ms:.4f} ms/call, {ms / k:.4f} ms/step")
@@ -161,18 +186,40 @@ def phase_kernel_b(tt, dev):
     return worst, per_k[K_AUTO], plain
 
 
+def launch_counts():
+    """Launches since the last reset: kernel A, kernel B, plain versions."""
+    from tpufdtd_torch.ops import stencil_step as A, stencil_sweep as B
+
+    return A.counts["kernel"], B.counts["kernel"], A.counts["plain"] + B.counts["plain"]
+
+
+def reset_counts():
+    from tpufdtd_torch.ops import stencil_step as A, stencil_sweep as B
+
+    A.reset_counts()
+    B.reset_counts()
+
+
 def phase_gate(tt, dev):
+    """The main path's correctness half; returns kernel A's launches in it."""
     from tpufdtd_torch.harness.correctness import make_ic
 
     grid = tt.Grid3D(GATE_N, GATE_N, GATE_N, hx=1.0, hy=1.0, hz=1.0)
     up, uc, m = make_ic(grid)
     _, c_true, _ = tt.truth_run_ring(up, uc, m, grid, 0.001, 50, device=dev)
+    reset_counts()
     _, c = tt.simulate(up, uc, m, grid, tt.SimConfig(dt=0.001, nsteps=50, backend="cuda"),
                        device=dev)
+    a, b, plain = launch_counts()
+    print(f"  gate launches: A {a}, B {b}, plain {plain}")
+    if a == 0 or b != 0 or plain != 0:
+        raise AssertionError(f"the gate's exact ring must run on kernel A alone; got A {a},"
+                             f" B {b}, plain {plain}")
     l2 = rel_l2(c, c_true)
     print(f"  gate {GATE_N}^3 x 50 (exact ring, kernel A): rel-L2 {l2:.3e} vs f64 truth")
     if not l2 < GATE_TOL:
         raise AssertionError(f"gate rel-L2 {l2} >= {GATE_TOL}")
+    return a
 
 
 def run_main(tt, dev, backend):
@@ -191,19 +238,20 @@ def run_main(tt, dev, backend):
 
 
 def phase_main(tt, dev, smi):
-    from tpufdtd_torch.ops import stencil_step as A, stencil_sweep as B
+    """The main path's perf half; returns kernel B's launches in it."""
     from tpufdtd_torch.utils import metrics
     from tpufdtd_torch.utils.peaks import detect_peaks
 
     n, nsteps, timed = MAIN_N, 50, 45
+    reset_counts()
     sim, state, secs, (u0, m, src, coords) = run_main(tt, dev, "cuda")
-    launches = {"A": A.counts["kernel"], "B": B.counts["kernel"]}
-    plain = A.counts["plain"] + B.counts["plain"]
-    print(f"  main path: fast ring K={sim.engine.sweep_k}, launches {launches}, plain {plain}")
+    a, b, plain = launch_counts()
+    print(f"  main path: fast ring K={sim.engine.sweep_k}, launches: A {a}, B {b}, plain {plain}")
     if not isinstance(state, dict) or sim.engine.sweep_k < 2:
         raise AssertionError("the main path did not take the fused fast ring")
-    if launches["A"] == 0 or launches["B"] == 0 or plain != 0:
-        raise AssertionError(f"kernel launches {launches}, plain calls {plain}")
+    if a != 0 or b == 0 or plain != 0:
+        raise AssertionError(f"the fast ring must run on kernel B alone; got A {a}, B {b},"
+                             f" plain {plain}")
     mx, nan = sim.state_field_stats(state)
     _, c = sim.extract_state(state)
     del state
@@ -227,7 +275,6 @@ def phase_main(tt, dev, smi):
     del sim
     _, state_t, secs_t, _ = run_main(tt, dev, "torch")
     del state_t
-    report = {}
     for name, tt_s in (("cuda", t), ("torch", secs_t)):
         ms_step = tt_s / timed * 1e3
         gcell = n**3 * timed / tt_s / 1e9
@@ -238,9 +285,8 @@ def phase_main(tt, dev, smi):
         print(f"  {n}^3 {name}: {ms_step:.4f} ms/step, {gcell:.3f} Gcell/s, "
               f"{hbm_step:.2f} % of HBM peak (12 B/pt per timed step), "
               f"{hbm_ref:.2f} % (reference convention) [{smi}]")
-        report[name] = ms_step
     print(f"  {n}^3 cuda timed spans (s): {times}")
-    return launches, report
+    return b
 
 
 def main() -> int:
@@ -251,7 +297,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import tpufdtd_torch as tt
-    from tpufdtd_torch.ops import _build, stencil_step as A, stencil_sweep as B
+    from tpufdtd_torch.ops import _build
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -271,21 +317,19 @@ def main() -> int:
     print("[4 kernel B vs plain]")
     err_b, ms_b, plain_b = phase_kernel_b(tt, dev)
 
-    A.reset_counts()
-    B.reset_counts()
     print("[5 correctness gate]")
-    phase_gate(tt, dev)
+    launches_a = phase_gate(tt, dev)
     print(f"[6 main path {MAIN_N}^3 x 50]")
-    launches, _ = phase_main(tt, dev, smi)
+    launches_b = phase_main(tt, dev, smi)
 
     kernels = [
         {"name": "leapfrog_step", "route": "cuda",
          "source": "tpufdtd_torch/csrc/stencil_step.cu",
-         "replaces": "tpufdtd/ops/stencil_pallas_z.py:148", "launches": launches["A"],
+         "replaces": "tpufdtd/ops/stencil_pallas_z.py:148", "launches": launches_a,
          "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a},
         {"name": "sweep_fused", "route": "cuda",
          "source": "tpufdtd_torch/csrc/stencil_sweep.cu",
-         "replaces": "tpufdtd/ops/stencil_sweep.py:1556", "launches": launches["B"],
+         "replaces": "tpufdtd/ops/stencil_sweep.py:1556", "launches": launches_b,
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b},
     ]
     print(json.dumps({"kernels": kernels}))

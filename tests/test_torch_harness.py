@@ -72,3 +72,22 @@ def test_perf_and_peaks_refuse_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             cli.main(["--skip-correctness", "--skip-perf"])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_tile_probe_candidates_fit_shared_memory(k):
+    from tpufdtd_torch.harness import tile_probe
+    from tpufdtd_torch.ops import stencil_sweep
+
+    tiles = tile_probe.candidates(k)
+    assert tiles[0] == stencil_sweep.TILES[k] and len(set(tiles)) == len(tiles) > 1
+    for tile in tiles:
+        assert stencil_sweep.smem_bytes(k, tile) <= stencil_sweep.SMEM_LIMIT
+        assert tile[3] <= tile[1]
+
+
+def test_tile_probe_refuses_the_cpu():
+    from tpufdtd_torch.harness import tile_probe
+
+    with pytest.raises(RuntimeError):
+        tile_probe.probe(16, [1], 1, device="cpu")

@@ -5,7 +5,9 @@ held here against the TPU kernel it replaces (leapfrog_step_zsplit in
 interpret mode, through ZSplitLayout.split/join) and against the JAX eager
 step for every order. Tolerance 1e-6 relative: independent f32
 implementations of the same expression differ by association and
-contraction only; rims must be bitwise untouched.
+contraction only; rims must be bitwise untouched. The steps use DT / h =
+0.3, which makes the stencil's share of the new level as large as the
+field, so a field-relative bound tests the stencil.
 """
 
 import jax.numpy as jnp
@@ -18,6 +20,8 @@ import tpufdtd_torch as tt
 from tpufdtd.layout import ZSplitLayout
 from tpufdtd.ops import stencil_jnp, stencil_pallas_z
 from tpufdtd_torch.ops import stencil_step, stencil_torch
+
+DT = 0.03
 
 
 def _fields(grid, seed, per_point_m):
@@ -37,7 +41,7 @@ def _interior_mask(grid):
     return mask
 
 
-def _ref(cur, prev, m, tgt, grid, dt=0.001):
+def _ref(cur, prev, m, tgt, grid, dt=DT):
     mt = torch.tensor(m) if isinstance(m, np.ndarray) else m
     out = stencil_step.leapfrog_step_ref(torch.tensor(cur), torch.tensor(prev), mt,
                                          torch.tensor(tgt), grid=tt.Grid3D.from_fields(grid), dt=dt)
@@ -55,7 +59,7 @@ def test_ref_matches_tpu_kernel_interpret(per_point_m):
     t_core, t_zrim = lay.split(tgt)
     m_core = lay.split(m)[0] if per_point_m else None
     core = stencil_pallas_z.leapfrog_step_zsplit(
-        c_core, c_zrim, p_core, t_core, m_core, grid=g, dt=0.001, bx=bx, by=by,
+        c_core, c_zrim, p_core, t_core, m_core, grid=g, dt=DT, bx=bx, by=by,
         m_val=None if per_point_m else m, interpret=True,
     )
     want = lay.join(np.asarray(core), t_zrim)
@@ -70,7 +74,7 @@ def test_ref_matches_jnp_every_order(order):
     g = tf.Grid3D(9, 7, 11, hx=0.1, hy=0.05, hz=0.2, order=order)
     cur, prev, tgt, m = _fields(g, order, True)
     want = np.asarray(stencil_jnp.leapfrog_step(
-        jnp.asarray(cur), jnp.asarray(prev), jnp.asarray(m), jnp.asarray(tgt), grid=g, dt=0.001))
+        jnp.asarray(cur), jnp.asarray(prev), jnp.asarray(m), jnp.asarray(tgt), grid=g, dt=DT))
     got = _ref(cur, prev, m, tgt, g)
     inner = _interior_mask(g)
     np.testing.assert_array_equal(got[~inner], tgt[~inner])
@@ -96,7 +100,7 @@ def test_wrapper_runs_plain_version_on_cpu():
     stencil_step.reset_counts()
     out = torch.tensor(tgt)
     res = stencil_step.leapfrog_step(torch.tensor(cur), torch.tensor(prev), torch.tensor(m), out,
-                                     grid=g, dt=0.001)
+                                     grid=g, dt=DT)
     assert res is out
     assert stencil_step.counts == {"kernel": 0, "plain": 1}
     np.testing.assert_array_equal(out.numpy(), _ref(cur, prev, m, tgt, g))

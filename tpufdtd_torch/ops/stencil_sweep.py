@@ -23,18 +23,16 @@ import numpy as np
 import torch
 
 from ..config import Grid3D
-from ..layout import Layout
 from . import _build, stencil_torch
-from .stencil_torch import _f32
 from .stencil_step import coeff_values
 
 RADIUS = 2
 # Block shape per fusion depth K: (XC, TY, TZ, YT) = the x-planes one
 # block sweeps, its (y, z) column (z is the contiguous axis), and its
-# 32 x YT threads along (z, y). The fastest shapes probed at 512^3 on an
-# H100 (PERF.md).
-TILES = {1: (128, 16, 128, 8), 2: (512, 32, 64, 16), 3: (512, 16, 64, 16),
-         4: (512, 32, 32, 16)}
+# 32 x YT threads along (z, y). The fastest shapes at 512^3 on an H100
+# (harness/tile_probe.py; PERF.md).
+TILES = {1: (256, 32, 128, 16), 2: (512, 32, 64, 16), 3: (512, 32, 32, 8),
+         4: (512, 32, 32, 8)}
 # Shared-memory planes per level (csrc/stencil_sweep.cu): u_{n-1}, u_n
 # (each with one plane in flight), and each of u_{n+1} .. u_{n+K-1}.
 PREV_RING, CUR_RING, RING = RADIUS + 2, 2 * RADIUS + 2, 2 * RADIUS + 1
@@ -70,37 +68,14 @@ def _isotropic(grid: Grid3D) -> bool:
     return grid.hx == grid.hy == grid.hz
 
 
-def _leap_isotropic(cur, prev, grid: Grid3D, cv: list):
-    """Interior update in the TPU kernel's leap_isotropic form: one
-    accumulator over all axes, scale = dt*dt*r2/m rounded on the host."""
-    lay = Layout.reference(grid)
-    interior = lay.interior_slices()
-    W = [_f32(w) for w in cv[:7]]
-    c = cur[interior]
-    acc = _f32(cv[14]) * c
-    for d in range(grid.radius, 0, -1):
-        nb = cur[lay.shifted_slices(0, -d)] + cur[lay.shifted_slices(0, d)]
-        nb = nb + cur[lay.shifted_slices(1, -d)]
-        nb = nb + cur[lay.shifted_slices(1, d)]
-        nb = nb + cur[lay.shifted_slices(2, d)]
-        nb = nb + cur[lay.shifted_slices(2, -d)]
-        acc = acc + W[d] * nb
-    return _f32(cv[15]) * acc + (_f32(2.0) * c - prev[interior])
-
-
 def sweep_fused_ref(U, *, grid: Grid3D, dt: float, m_val: float, k_fuse: int):
     """Plain PyTorch version of the kernel: k_fuse eager steps, each writing
     only the interior (the rims stay frozen). Returns a new
     [u_{n+K-1}, u_{n+K}] tensor."""
     counts["plain"] += 1
     prev, cur = U[0].clone(), U[1].clone()
-    interior = Layout.reference(grid).interior_slices()
-    cv = coeff_values(grid, dt, m_val)
     for _ in range(k_fuse):
-        if _isotropic(grid):
-            prev[interior] = _leap_isotropic(cur, prev, grid, cv)
-        else:
-            stencil_torch.leapfrog_step(cur, prev, m_val, prev, grid=grid, dt=dt)
+        stencil_torch.leapfrog_step(cur, prev, m_val, prev, grid=grid, dt=dt)
         prev, cur = cur, prev
     return torch.stack([prev, cur])
 
