@@ -8,16 +8,23 @@ exits non-zero without a result line:
   1. card: name, power limit, torch / CUDA / nvcc versions;
   2. build: both kernels from tpufdtd_torch/csrc, with nvcc's -Xptxas -v lines;
   3. kernel A (single step) against its plain version, rims bitwise;
-  4. kernel B (K fused steps) against K plain steps, for K = 1..K_max, at
-     the main path's 512^3 among other shapes;
+  3b. kernel A at order 12 (leapfrog_step_pallas's role) at 512^3, scalar
+     and per-point m, checked then timed;
+  4. kernel B (K fused steps) at radius 2 against K plain steps, for
+     K = 1..k_max, at the main path's 512^3 among other shapes;
+  4b. kernel B at radius 1, 3 and 4 (orders 2, 6, 8) the same way;
   5. correctness gate: simulate() at 128^3 x 50 through kernel A against
      the torch-f64 truth (rel-L2 < 1e-4), counting kernel A's launches;
   6. main path: Simulator at 512^3 x 50, one Ricker source, fast ring on
      kernel B, against the f64 truth, counting kernel B's launches;
      ms/step, Gcell/s and % of HBM peak; the same run on the plain
-     "torch" backend.
-Then one JSON line per kernel set, the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}. Exits 1 without a CUDA device.
+     "torch" backend;
+  7. high-order paths: the run of phase 6 at orders 6, 8 and 12 (kernel B
+     at radius 3, kernel B at radius 4 with K = 2 and K = 1, kernel A at
+     radius 6), each with its launches, levels, rel-L2 and times.
+Then the JSON line of the kernels (one entry per TPU kernel replaced), the
+nvidia-smi line, and the last line {"ok": true, "device": {...}}. Exits 1
+without a CUDA device.
 """
 
 import json
@@ -30,15 +37,24 @@ import numpy as np
 # stencil increment, want - (the same steps with the Laplacian left out),
 # not to the field: at the main path's dt = 1e-3, h = 0.1 the stencil adds
 # ~1e-4 of the field per step, and a field-relative bound would pass a
-# wrong stencil. CHECK_DT = 0.03 (dt/h = 0.3, stable at order 4) makes the
+# wrong stencil. CHECK_DT = 0.03 (dt/h = 0.3) makes the
 # increment as large as the field; nvcc contracts a*b+c into FMAs and the
-# plain version does not, which costs ~1e-6 of the increment over K <= 4
-# steps, while a 1e-3 error in the radius-2 weight alone shows as ~3e-5.
+# plain version does not, and kernel B's isotropic form associates the sum
+# otherwise (DEVIATIONS.md:31-35), which costs ~1e-6 of the increment over
+# K <= 4 steps, while a 1e-3 error in the radius-2 weight alone shows as
+# ~3e-5. With m = 1.5, 0.3 is inside the leapfrog limit on dt/h at every
+# order (3 sum|w| dt^2 / (m h^2) <= 4: 0.61 at order 4, 0.53 at order 12).
 KERNEL_RTOL = 1e-5
 CHECK_DT = 0.03
 GATE_TOL = 1e-4  # rel-L2 against the f64 truth (harness/correctness.py)
 GATE_N = 128  # correctness gate grid (bench.py:43)
 MAIN_N = 512  # main-path grid (bench.py:60)
+HIGH_ORDERS = (6, 8, 12)  # phase 7
+# Published H100 SXM peaks (NVIDIA data sheet) for the least time a call
+# could take: device memory 3.35 TB/s, f32 outside the tensor cores 67
+# TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def smi_line() -> str:
@@ -98,6 +114,34 @@ def compare(name, got, want, base, untouched, mask) -> float:
     return err
 
 
+def bound(grid, levels_read: int, levels_written: int, steps: int):
+    """(bound_ms, bound_by) of a call on `grid`: the larger of its bytes over
+    the memory rate and its operations over the f32 rate. Bytes: u_n read
+    once over the interior and the R cells the stencil reaches beyond it,
+    each further input level (u_{n-1}, a per-point m) over the interior,
+    each output level written once over the interior. Operations: the
+    reference's 3 (order + 1) 2 + 6 per point per step (main.cpp:129-136)."""
+    from tpufdtd_torch.utils import metrics
+
+    n = grid.interior_cells
+    r2 = 2 * grid.radius
+    reach = (grid.nx + r2) * (grid.ny + r2) * (grid.nz + r2)
+    nbytes = 4 * (reach + n * (levels_read - 1 + levels_written))
+    flops = steps * n * metrics.flops_per_point(grid.order)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_a(grid, per_point_m: bool):
+    """Kernel A: reads u_n, u_{n-1} (and m), writes one level."""
+    return bound(grid, 3 if per_point_m else 2, 1, 1)
+
+
+def bound_b(grid, k: int):
+    """Kernel B: reads u_{n-1}, u_n, writes u_{n+K-1}, u_{n+K}."""
+    return bound(grid, 2, 2, k)
+
+
 def phase_kernel_a(tt, dev):
     import torch
     from tpufdtd_torch.ops import stencil_step as A
@@ -106,6 +150,7 @@ def phase_kernel_a(tt, dev):
     cases = [((GATE_N,) * 3, 4, "scalar"), ((GATE_N,) * 3, 4, "per-point"),
              ((17, 13, 11), 4, "scalar"), ((17, 13, 11), 4, "per-point")]
     cases += [((17, 13, 11), order, "per-point") for order in (2, 6, 8, 10, 12)]
+    cases += [((17, 13, 11), 12, "scalar")]
     worst = 0.0
     for shape, order, mkind in cases:
         grid = tt.Grid3D(*shape, order=order)
@@ -124,8 +169,42 @@ def phase_kernel_a(tt, dev):
                          for _ in range(3))
     ms = cuda_ms(lambda: A.leapfrog_step(cur, prev, 1.5, target, grid=grid, dt=1e-3), 50)
     plain = cuda_ms(lambda: A.leapfrog_step_ref(cur, prev, 1.5, target, grid=grid, dt=1e-3), 20)
-    print(f"  A at {GATE_N}^3: kernel {ms:.4f} ms/step, plain {plain:.4f} ms/step")
-    return worst, ms, plain
+    bms, by = bound_a(grid, False)
+    print(f"  A at {GATE_N}^3: kernel {ms:.4f} ms/step, plain {plain:.4f} ms/step,"
+          f" bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+
+
+def phase_kernel_a_order12(tt, dev):
+    """Kernel A at radius 6, leapfrog_step_pallas's role, at the main path's
+    shape: scalar m (the order-12 path's medium) and per-point m, checked
+    against the plain version, then timed."""
+    import torch
+    from tpufdtd_torch.ops import stencil_step as A
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    grid = tt.Grid3D(MAIN_N, MAIN_N, MAIN_N, order=12)
+    mask = interior_mask(grid, dev)
+    cur, prev, target = (torch.randn(grid.padded_shape, generator=gen, device=dev)
+                         for _ in range(3))
+    out = {}
+    for mkind in ("scalar", "per-point"):
+        m = (1.5 + 0.5 * torch.rand(grid.padded_shape, generator=gen, device=dev)
+             if mkind == "per-point" else 1.5)
+        got = A.leapfrog_step(cur, prev, m, target.clone(), grid=grid, dt=CHECK_DT)
+        want = A.leapfrog_step_ref(cur, prev, m, target.clone(), grid=grid, dt=CHECK_DT)
+        torch.cuda.synchronize()
+        err = compare(f"A {MAIN_N}^3 order 12 m {mkind}", got, want, 2 * cur - prev, target, mask)
+        del got, want
+        ms = cuda_ms(lambda: A.leapfrog_step(cur, prev, m, target, grid=grid, dt=1e-3), 20)
+        plain = cuda_ms(lambda: A.leapfrog_step_ref(cur, prev, m, target, grid=grid, dt=1e-3), 3)
+        bms, by = bound_a(grid, mkind == "per-point")
+        print(f"  A at {MAIN_N}^3 order 12 m {mkind}: kernel {ms:.4f} ms/step, plain"
+              f" {plain:.4f} ms/step, bound {bms:.4f} ms ({by})")
+        out[mkind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                      "bound_by": by}
+        del m
+    return out
 
 
 def _fast_pair(grid, gen, dev):
@@ -151,46 +230,73 @@ def _lap_free(U, k):
 def check_b(B, grid, U, out, mask, k):
     got = B.sweep_fused(U, out.clone(), grid=grid, dt=CHECK_DT, m_val=1.5, k_fuse=k)
     want = B.sweep_fused_ref(U, grid=grid, dt=CHECK_DT, m_val=1.5, k_fuse=k)
-    name = f"B {grid.nx}x{grid.ny}x{grid.nz} h=({grid.hx},{grid.hy},{grid.hz}) K={k}"
+    name = (f"B R={grid.radius} {grid.nx}x{grid.ny}x{grid.nz} h=({grid.hx},{grid.hy},{grid.hz})"
+            f" K={k}")
     return compare(name, got, want, _lap_free(U, k), out, mask)
 
 
-def phase_kernel_b(tt, dev):
+def phase_kernel_b(tt, dev, radius, plain_ks):
+    """Kernel B at one radius against its plain version for every K: on
+    small shapes and at the main path's 512^3, which is then timed per K;
+    the plain version is timed at 512^3 for each K of plain_ks. Returns
+    {"max_abs_err": worst error, K: {"ms", "plain_ms", "bound_ms", ...}}."""
     import torch
     from tpufdtd_torch.ops import stencil_sweep as B
-    from tpufdtd_torch.stepper import K_AUTO
 
-    gen = torch.Generator(device=dev).manual_seed(2)
-    kmax = B.k_max()
+    gen = torch.Generator(device=dev).manual_seed(2 + 10 * radius)
+    order = 2 * radius
+    kmax = B.k_max(radius)
     worst = 0.0
     # 1100 x-planes span several x-chunks of a block at every K
     # (stencil_sweep.TILES), as 512^3 does at K = 1
-    grids = [tt.Grid3D(GATE_N, GATE_N, GATE_N), tt.Grid3D(17, 13, 11),
-             tt.Grid3D(17, 13, 11, hx=0.1, hy=0.05, hz=0.2), tt.Grid3D(1100, 12, 20)]
+    grids = [tt.Grid3D(GATE_N, GATE_N, GATE_N, order=order),
+             tt.Grid3D(17, 13, 11, hx=0.1, hy=0.05, hz=0.2, order=order),
+             tt.Grid3D(1100, 12, 20, order=order)]
+    if radius == 2:
+        grids.insert(1, tt.Grid3D(17, 13, 11))
     for grid in grids:
         U, out, mask = _fast_pair(grid, gen, dev)
         for k in range(1, kmax + 1):
             worst = max(worst, check_b(B, grid, U, out, mask, k))
     # the main path's shape: checked, then timed
-    grid = tt.Grid3D(MAIN_N, MAIN_N, MAIN_N)
+    grid = tt.Grid3D(MAIN_N, MAIN_N, MAIN_N, order=order)
     U, out, mask = _fast_pair(grid, gen, dev)
-    per_k = {}
+    res = {}
     for k in range(1, kmax + 1):
         worst = max(worst, check_b(B, grid, U, out, mask, k))
         ms = cuda_ms(lambda: B.sweep_fused(U, out, grid=grid, dt=1e-3, m_val=1.5, k_fuse=k), 10)
-        per_k[k] = ms
-        print(f"  B at {MAIN_N}^3 K={k}: {ms:.4f} ms/call, {ms / k:.4f} ms/step")
-    plain = cuda_ms(lambda: B.sweep_fused_ref(U, grid=grid, dt=1e-3, m_val=1.5,
-                                              k_fuse=K_AUTO), 3)
-    print(f"  B plain at {MAIN_N}^3 K={K_AUTO}: {plain:.4f} ms/call, {plain / K_AUTO:.4f} ms/step")
-    return worst, per_k[K_AUTO], plain
+        bms, by = bound_b(grid, k)
+        res[k] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        print(f"  B R={radius} at {MAIN_N}^3 K={k}: {ms:.4f} ms/call, {ms / k:.4f} ms/step,"
+              f" bound {bms:.4f} ms/call ({by})")
+    for k in plain_ks:
+        plain = cuda_ms(lambda: B.sweep_fused_ref(U, grid=grid, dt=1e-3, m_val=1.5,
+                                                  k_fuse=k), 3)
+        res[k]["plain_ms"] = plain
+        print(f"  B plain R={radius} at {MAIN_N}^3 K={k}: {plain:.4f} ms/call,"
+              f" {plain / k:.4f} ms/step")
+    res["max_abs_err"] = worst
+    return res
 
 
 def launch_counts():
     """Launches since the last reset: kernel A, kernel B, plain versions."""
     from tpufdtd_torch.ops import stencil_step as A, stencil_sweep as B
 
-    return A.counts["kernel"], B.counts["kernel"], A.counts["plain"] + B.counts["plain"]
+    return A.launches(), B.launches(), A.launches("plain") + B.launches("plain")
+
+
+def launches_by_mode():
+    """Launches since the last reset per kernel and mode: {"A R=6": n,
+    "B R=4,K=2": n, ...}, plain versions included."""
+    from tpufdtd_torch.ops import stencil_step as A, stencil_sweep as B
+
+    out = {}
+    for route in ("kernel", "plain"):
+        tag = "" if route == "kernel" else " plain"
+        out.update({f"A{tag} R={r}": n for r, n in A.counts[route].items()})
+        out.update({f"B{tag} R={r},K={k}": n for (r, k), n in B.counts[route].items()})
+    return out
 
 
 def reset_counts():
@@ -222,9 +328,9 @@ def phase_gate(tt, dev):
     return a
 
 
-def run_main(tt, dev, backend):
+def run_main(tt, dev, backend, order=4):
     n, nsteps = MAIN_N, 50
-    grid = tt.Grid3D(n, n, n)
+    grid = tt.Grid3D(n, n, n, order=order)
     cfg = tt.SimConfig(dt=0.001, nsteps=nsteps, warmup_steps=5, backend=backend)
     m = np.full(grid.padded_shape, 1.5, np.float32)
     src = tt.ricker_table(nsteps, 1, cfg.dt)
@@ -239,10 +345,7 @@ def run_main(tt, dev, backend):
 
 def phase_main(tt, dev, smi):
     """The main path's perf half; returns kernel B's launches in it."""
-    from tpufdtd_torch.utils import metrics
-    from tpufdtd_torch.utils.peaks import detect_peaks
-
-    n, nsteps, timed = MAIN_N, 50, 45
+    n, nsteps = MAIN_N, 50
     reset_counts()
     sim, state, secs, (u0, m, src, coords) = run_main(tt, dev, "cuda")
     a, b, plain = launch_counts()
@@ -264,6 +367,19 @@ def phase_main(tt, dev, smi):
         raise AssertionError(f"main-path rel-L2 {l2} >= {GATE_TOL}")
     del c, c_true
 
+    report_times(tt, dev, smi, sim, secs, src)
+    return b
+
+
+def report_times(tt, dev, smi, sim, secs, src):
+    """Median of 4 timed spans on "cuda" (the checked run's and three from
+    random states) and one on the plain "torch" backend: ms/step, Gcell/s
+    and % of HBM peak, each beside the nvidia-smi line."""
+    from tpufdtd_torch.utils import metrics
+    from tpufdtd_torch.utils.peaks import detect_peaks
+
+    n, nsteps, timed = MAIN_N, 50, 45
+    order = sim.grid.order
     peaks = detect_peaks(dev)
     times = [secs]
     for seed in range(3):
@@ -272,8 +388,7 @@ def phase_main(tt, dev, smi):
         times.append(s)
         del st
     t = float(np.median(times))
-    del sim
-    _, state_t, secs_t, _ = run_main(tt, dev, "torch")
+    _, state_t, secs_t, _ = run_main(tt, dev, "torch", order)
     del state_t
     for name, tt_s in (("cuda", t), ("torch", secs_t)):
         ms_step = tt_s / timed * 1e3
@@ -282,11 +397,106 @@ def phase_main(tt, dev, smi):
         # 45-step timed span, as the 28.3 % CUDA_Optimized yardstick uses
         hbm_ref = metrics.gbps_model(n, n, n, nsteps, tt_s, metrics.BYTES_OPTIMIZED) / peaks.hbm_gbps * 100
         hbm_step = n**3 * metrics.BYTES_OPTIMIZED / (ms_step * 1e-3) / 1e9 / peaks.hbm_gbps * 100
-        print(f"  {n}^3 {name}: {ms_step:.4f} ms/step, {gcell:.3f} Gcell/s, "
+        print(f"  {n}^3 order {order} {name}: {ms_step:.4f} ms/step, {gcell:.3f} Gcell/s, "
               f"{hbm_step:.2f} % of HBM peak (12 B/pt per timed step), "
               f"{hbm_ref:.2f} % (reference convention) [{smi}]")
-    print(f"  {n}^3 cuda timed spans (s): {times}")
-    return b
+    print(f"  {n}^3 order {order} cuda timed spans (s): {times}")
+
+
+# per order of phase 7: the only launches allowed, and those that must occur
+HIGH_ORDER_LAUNCHES = {6: ({"B R=3"}, set()), 8: ({"B R=4"}, {"B R=4,K=2", "B R=4,K=1"}),
+                       12: ({"A R=6"}, {"A R=6"})}
+
+
+def phase_high_order(tt, dev, smi, order):
+    """Phase 6's run at a higher order: launches, levels, rel-L2 against
+    the f64 truth and times. Returns the launches per mode."""
+    n, nsteps = MAIN_N, 50
+    reset_counts()
+    sim, state, secs, (u0, m, src, coords) = run_main(tt, dev, "cuda", order)
+    modes = launches_by_mode()
+    print(f"  order {order}: ring {'fast, K=%d' % sim.engine.sweep_k if sim.engine.sweep_k else 'exact'},"
+          f" launches {modes}")
+    allowed, needed = HIGH_ORDER_LAUNCHES[order]
+    stray = [key for key in modes if not any(key.startswith(a + ",") or key == a for a in allowed)]
+    missing = [key for key in needed if not modes.get(key)]
+    if stray or missing or not modes:
+        raise AssertionError(f"order {order}: launches {modes}; allowed {allowed}, needed {needed}")
+    levels = sim.extract_state(state)
+    want_levels = 3 if order > 8 else 2
+    if len(levels) != want_levels or isinstance(state, dict) != (want_levels == 2):
+        raise AssertionError(f"order {order}: {len(levels)} levels, expected {want_levels}")
+    c = levels[1]
+    del levels
+    mx, nan = sim.state_field_stats(state)
+    del state
+    if nan or not np.isfinite(c).all() or mx == 0.0:
+        raise AssertionError(f"order {order} field: max {mx}, nan {nan}")
+    _, c_true, _ = tt.truth_run_ring(u0, u0, m, sim.grid, 0.001, nsteps, src, coords, device=dev)
+    l2 = rel_l2(c, c_true)
+    print(f"  {n}^3 x 50 order {order} u_N: rel-L2 {l2:.3e} vs f64 truth, max |u| {mx:.4e},"
+          f" {want_levels} levels")
+    if not l2 < GATE_TOL:
+        raise AssertionError(f"order {order} rel-L2 {l2} >= {GATE_TOL}")
+    del c, c_true
+    report_times(tt, dev, smi, sim, secs, src)
+    return modes
+
+
+def run_phases(tt, dev, smi):
+    """Phases 3-7; returns the kernels line's entries."""
+    from tpufdtd_torch.stepper import K_AUTO
+
+    print("[3 kernel A vs plain]")
+    a4 = phase_kernel_a(tt, dev)
+    print("[3b kernel A at order 12 vs plain]")
+    a12 = phase_kernel_a_order12(tt, dev)
+    print("[4 kernel B vs plain]")
+    b = {2: phase_kernel_b(tt, dev, 2, [K_AUTO[2]])}
+    print("[4b kernel B at radius 1, 3 and 4 vs plain]")
+    for radius, plain_ks in ((1, [K_AUTO[1]]), (3, [K_AUTO[3]]), (4, sorted({1, 2, K_AUTO[4]}))):
+        b[radius] = phase_kernel_b(tt, dev, radius, plain_ks)
+
+    print("[5 correctness gate]")
+    launches_a = phase_gate(tt, dev)
+    print(f"[6 main path {MAIN_N}^3 x 50]")
+    launches_b = phase_main(tt, dev, smi)
+    print(f"[7 high-order paths {MAIN_N}^3 x 50]")
+    paths = {order: phase_high_order(tt, dev, smi, order) for order in HIGH_ORDERS}
+
+    def b_mode(radius, k):
+        return {**b[radius][k], "max_abs_err": b[radius]["max_abs_err"]}
+
+    sweep = "tpufdtd_torch/csrc/stencil_sweep.cu"
+    step = "tpufdtd_torch/csrc/stencil_step.cu"
+    b6 = sum(paths[6].values())
+    kernels = [
+        {"name": "leapfrog_step_zsplit", "route": "cuda", "source": step,
+         "replaces": "tpufdtd/ops/stencil_pallas_z.py:148", "mode": f"R=2, scalar m, {GATE_N}^3",
+         "launches": launches_a, **a4},
+        {"name": "sweep_fused", "route": "cuda", "source": sweep,
+         "replaces": "tpufdtd/ops/stencil_sweep.py:1556",
+         "mode": f"R=2,K={K_AUTO[2]} (order 4 main path); R=3,K={K_AUTO[3]} (order 6 path)",
+         "launches": launches_b + b6, "path_launches": {"order 4": launches_b, "order 6": b6},
+         **b_mode(2, K_AUTO[2]),
+         "max_abs_err": max(b[r]["max_abs_err"] for r in (1, 2, 3)),
+         "modes": {f"R={r},K={K_AUTO[r]}": b_mode(r, K_AUTO[r]) for r in (1, 3)}},
+        {"name": "packed_step", "route": "cuda", "source": sweep,
+         "replaces": "tpufdtd/ops/stencil_pallas_z.py:405", "mode": "R=4,K=1",
+         "launches": paths[8]["B R=4,K=1"], **b_mode(4, 1)},
+        {"name": "packed_fused2", "route": "cuda", "source": sweep,
+         "replaces": "tpufdtd/ops/stencil_pallas_z.py:542", "mode": "R=4,K=2",
+         "launches": paths[8]["B R=4,K=2"], **b_mode(4, 2)},
+        {"name": "leapfrog_step_pallas", "route": "cuda", "source": step,
+         "replaces": "tpufdtd/ops/stencil_pallas.py:185", "mode": "R=6, scalar m",
+         "launches": paths[12]["A R=6"], **a12["scalar"],
+         "max_abs_err": max(v["max_abs_err"] for v in a12.values()),
+         "modes": {"R=6, per-point m": a12["per-point"]}},
+    ]
+    for entry in kernels:
+        entry["library_ms"] = None  # no single PyTorch call computes a leapfrog step
+    return kernels
+
 
 
 def main() -> int:
@@ -312,33 +522,12 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
 
-    print("[3 kernel A vs plain]")
-    err_a, ms_a, plain_a = phase_kernel_a(tt, dev)
-    print("[4 kernel B vs plain]")
-    err_b, ms_b, plain_b = phase_kernel_b(tt, dev)
-
-    print("[5 correctness gate]")
-    launches_a = phase_gate(tt, dev)
-    print(f"[6 main path {MAIN_N}^3 x 50]")
-    launches_b = phase_main(tt, dev, smi)
-
-    kernels = [
-        {"name": "leapfrog_step", "route": "cuda",
-         "source": "tpufdtd_torch/csrc/stencil_step.cu",
-         "replaces": "tpufdtd/ops/stencil_pallas_z.py:148", "launches": launches_a,
-         "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a},
-        {"name": "sweep_fused", "route": "cuda",
-         "source": "tpufdtd_torch/csrc/stencil_sweep.cu",
-         "replaces": "tpufdtd/ops/stencil_sweep.py:1556", "launches": launches_b,
-         "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b},
-    ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": run_phases(tt, dev, smi)}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -144,6 +144,34 @@ def test_injection_cubes_bitwise(case, kmax):
         assert fit == jsrc.cubes_fit_core(b[j], gj.padded_shape, h, h, gj.nz, z0=h)
 
 
+@pytest.mark.parametrize("order,kmax", [(6, 4), (8, 3)])
+def test_injection_cubes_are_free_space_propagation(order, kmax):
+    """At the deepest K of kernel B per radius, every cube C_j equals the
+    corner pattern propagated j-1 steps on a scratch grid with room to
+    spare, bit for bit: the spread R*(j-1) stays inside the interior of
+    the scratch grid the cubes are built on."""
+    g = tt.Grid3D(32, 32, 32, hx=1.0, hy=1.0, hz=1.0, order=order)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    term = tsrc.build_source_term(g, np.array([[15.3, 16.6, 14.2]], np.float32), m)
+    cubes = tsrc.injection_cubes_upto(g, term, 1.5, 0.03, kmax)
+    big = tt.Grid3D(48, 48, 48, hx=1.0, hy=1.0, hz=1.0, order=order)
+    c0, f = big.halo + 24, (term.ix.min(), term.iy.min(), term.iz.min())
+    w = np.zeros(big.padded_shape, np.float32)
+    for k in range(term.ix.size):
+        w[c0 + term.ix[k] - f[0], c0 + term.iy[k] - f[1], c0 + term.iz[k] - f[2]] += term.scale[k]
+    mb = np.full(big.padded_shape, 1.5, np.float32)
+    e_prev, e_cur = np.zeros_like(w), w
+    for j in range(2, kmax + 1):
+        e_prev, e_cur = e_cur, np.asarray(tt.oracle_step(e_cur, e_prev, mb, big, 0.03), np.float32)
+        (sl, cube, _p), = cubes[j]
+        gj = g.radius * (j - 1)
+        assert sl[0].start == f[0] - gj and cube.shape == (2 * gj + 2,) * 3
+        lo = c0 - gj
+        want = e_cur[lo:lo + 2 * gj + 2, lo:lo + 2 * gj + 2, lo:lo + 2 * gj + 2]
+        np.testing.assert_array_equal(cube, want)
+        assert np.count_nonzero(cube[0]) and np.count_nonzero(cube[-1])
+
+
 def test_import_without_jax():
     """The port imports nothing of JAX, not even through tpufdtd."""
     code = (

@@ -79,15 +79,28 @@ def test_tile_probe_candidates_fit_shared_memory(k):
     from tpufdtd_torch.harness import tile_probe
     from tpufdtd_torch.ops import stencil_sweep
 
-    tiles = tile_probe.candidates(k)
-    assert tiles[0] == stencil_sweep.TILES[k] and len(set(tiles)) == len(tiles) > 1
-    for tile in tiles:
-        assert stencil_sweep.smem_bytes(k, tile) <= stencil_sweep.SMEM_LIMIT
-        assert tile[3] <= tile[1]
+    radii = [r for r in stencil_sweep.RADII if (r, k) in stencil_sweep.TILES]
+    assert radii
+    for r in radii:
+        tiles = tile_probe.candidates(r, k)
+        assert tiles[0] == stencil_sweep.TILES[r, k] and len(set(tiles)) == len(tiles) > 1
+        for tile in tiles:
+            assert stencil_sweep.smem_bytes(r, k, tile) <= stencil_sweep.SMEM_LIMIT
+            assert tile[3] <= tile[1]
 
 
 def test_tile_probe_refuses_the_cpu():
     from tpufdtd_torch.harness import tile_probe
 
     with pytest.raises(RuntimeError):
-        tile_probe.probe(16, [1], 1, device="cpu")
+        tile_probe.probe(16, [2], [1], 1, device="cpu")
+
+
+@pytest.mark.parametrize("order", [8, 12])
+def test_correctness_ladder_takes_the_order(order):
+    """--order reaches the correctness ladder's grids: the f64 truth and
+    both backends run at that order and agree."""
+    reports = run_correctness(sizes=[12], nsteps=6, backends=("torch", "cuda"), order=order,
+                              verbose=False, device="cpu")
+    assert [r.method for r in reports] == ["torch", "cuda"]
+    assert all(r.passed for r in reports)

@@ -1,9 +1,10 @@
 """Kernel A's module (ops/stencil_step) and the eager step on the CPU.
 
 On the CPU the wrapper runs the plain version `leapfrog_step_ref`, which is
-held here against the TPU kernel it replaces (leapfrog_step_zsplit in
-interpret mode, through ZSplitLayout.split/join) and against the JAX eager
-step for every order. Tolerance 1e-6 relative: independent f32
+held here against the TPU kernels it replaces, in interpret mode
+(leapfrog_step_zsplit through ZSplitLayout.split/join; leapfrog_step_pallas
+at orders 10-12 through Layout.tpu embed/extract), and against the JAX
+eager step for every order. Tolerance 1e-6 relative: independent f32
 implementations of the same expression differ by association and
 contraction only; rims must be bitwise untouched. The steps use DT / h =
 0.3, which makes the stencil's share of the new level as large as the
@@ -17,8 +18,8 @@ import torch
 
 import tpufdtd as tf
 import tpufdtd_torch as tt
-from tpufdtd.layout import ZSplitLayout
-from tpufdtd.ops import stencil_jnp, stencil_pallas_z
+from tpufdtd.layout import Layout, ZSplitLayout
+from tpufdtd.ops import stencil_jnp, stencil_pallas, stencil_pallas_z
 from tpufdtd_torch.ops import stencil_step, stencil_torch
 
 DT = 0.03
@@ -69,6 +70,29 @@ def test_ref_matches_tpu_kernel_interpret(per_point_m):
     assert _rel_max(got, want) <= 1e-6
 
 
+@pytest.mark.parametrize("order", [10, 12])
+@pytest.mark.parametrize("shape,mode", [((8, 16, 16), "y_tiled"), ((12, 13, 10), "y_full")])
+def test_ref_matches_leapfrog_step_pallas_interpret(order, shape, mode):
+    """Per-point m at the orders that only leapfrog_step_pallas runs, in its
+    y-tiled mode and in its y-full mode (ny % 8 != 0). It stores the
+    target's rim back; the plain version leaves it untouched: bitwise."""
+    g = tf.Grid3D(*shape, hx=0.1, hy=0.1, hz=0.1, order=order)
+    cur, prev, tgt, m = _fields(g, 40 + order, True)
+    lay = Layout.tpu(g)
+    bx, by = (4, 8) if mode == "y_tiled" else stencil_pallas.choose_tiling(g, lay)
+    assert (by < g.ny) == (mode == "y_tiled")
+    out = stencil_pallas.leapfrog_step_pallas(
+        *(jnp.asarray(lay.embed(a)) for a in (cur, prev, m, tgt)),
+        grid=g, dt=DT, bx=bx, by=by, interpret=True,
+    )
+    want = lay.extract(np.asarray(out))
+    got = _ref(cur, prev, m, tgt, g)
+    inner = _interior_mask(g)
+    np.testing.assert_array_equal(want[~inner], tgt[~inner])
+    np.testing.assert_array_equal(got[~inner], want[~inner])
+    assert _rel_max(got, want) <= 1e-6
+
+
 @pytest.mark.parametrize("order", [2, 4, 6, 8, 10, 12])
 def test_ref_matches_jnp_every_order(order):
     g = tf.Grid3D(9, 7, 11, hx=0.1, hy=0.05, hz=0.2, order=order)
@@ -102,7 +126,8 @@ def test_wrapper_runs_plain_version_on_cpu():
     res = stencil_step.leapfrog_step(torch.tensor(cur), torch.tensor(prev), torch.tensor(m), out,
                                      grid=g, dt=DT)
     assert res is out
-    assert stencil_step.counts == {"kernel": 0, "plain": 1}
+    assert stencil_step.counts == {"kernel": {}, "plain": {2: 1}}
+    assert stencil_step.launches("plain") == 1 and stencil_step.launches() == 0
     np.testing.assert_array_equal(out.numpy(), _ref(cur, prev, m, tgt, g))
 
 

@@ -1,13 +1,16 @@
 """Kernel B's module (ops/stencil_sweep) on the CPU.
 
 The plain version `sweep_fused_ref` (K eager steps, rims frozen) is held
-against the TPU kernel it replaces, sweep_fused in interpret mode, with
-the recipe of tests/test_sweep.py (ZSplitLayout split, pad_zrim). The TPU
-kernel flips level roles at K = 1 (the new level lands in level 1-cur);
-the port always returns [u_{n+K-1}, u_{n+K}]. Tolerance: rel-L2 1e-6,
-association order only. The steps use dt / h = 0.3 (stable at order 4),
-which makes the stencil's share of each new level as large as the field,
-so a field-relative bound tests the stencil.
+against the TPU kernels it replaces, in interpret mode: sweep_fused at
+radius 1-3 with the recipe of tests/test_sweep.py (ZSplitLayout split,
+pad_zrim), and at radius 4 packed_step (K = 1) and packed_fused2 (K = 2)
+with the recipe of the JAX engine's packed ring. The TPU kernels flip level
+roles at K = 1 (the new level lands in level 1-cur); the port always
+returns [u_{n+K-1}, u_{n+K}]. Tolerance: rel-L2 1e-6, association order
+only (the TPU sweep's isotropic form against the exact form). The steps
+use dt / h = 0.3 (stable at orders 2-8 with m = 1.5), which makes the
+stencil's share of each new level as large as the field, so a
+field-relative bound tests the stencil.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import torch
 import tpufdtd as tf
 import tpufdtd_torch as tt
 from tpufdtd.layout import ZSplitLayout
+from tpufdtd.ops import stencil_pallas_z as jpz
 from tpufdtd.ops import stencil_sweep as jsw
 from tpufdtd_torch.ops import stencil_sweep as sw
 from conftest import rel_l2
@@ -35,14 +39,10 @@ def _fast_ic(grid, seed):
     return out
 
 
-@pytest.mark.parametrize("k,h", [(1, (1.0, 1.0, 1.0)), (2, (1.0, 1.0, 1.0)),
-                                 (4, (1.0, 1.0, 1.0)), (2, (1.0, 0.5, 2.0))])
-def test_ref_matches_tpu_sweep_interpret(k, h):
+def _tpu_sweep(g, up, uc, dt, k):
+    """[u_{n+K-1}, u_{n+K}] of the TPU sweep kernel in interpret mode."""
     import jax.numpy as jnp
 
-    dt = 0.3 * h[0]
-    g = tf.Grid3D(12, 16, 32, hx=h[0], hy=h[1], hz=h[2])
-    up, uc = _fast_ic(g, 10 + k)
     lay = ZSplitLayout(g, py=8, xpad=max(g.halo, k * g.radius), z_embed=jsw.z_embedded(g))
     p_core, p_zrim = lay.split(up)
     c_core, _ = lay.split(uc)
@@ -51,14 +51,63 @@ def test_ref_matches_tpu_sweep_interpret(k, h):
     out = np.asarray(jsw.sweep_fused(U0, zr, grid=g, dt=dt, m_val=1.5, k_fuse=k,
                                      interpret=True))
     if k == 1:  # cur = 1 in, new level written to level 0
-        want_prev, want_cur = lay.join(out[1], p_zrim), lay.join(out[0], p_zrim)
-    else:
-        want_prev, want_cur = lay.join(out[0], p_zrim), lay.join(out[1], p_zrim)
+        return lay.join(out[1], p_zrim), lay.join(out[0], p_zrim)
+    return lay.join(out[0], p_zrim), lay.join(out[1], p_zrim)
 
+
+def _assert_ref_matches(g, up, uc, dt, k, want_prev, want_cur):
     U = torch.tensor(np.stack([up, uc]))
     got = sw.sweep_fused_ref(U, grid=tt.Grid3D.from_fields(g), dt=dt, m_val=1.5, k_fuse=k)
     assert rel_l2(got[0].numpy(), want_prev) <= 1e-6
     assert rel_l2(got[1].numpy(), want_cur) <= 1e-6
+
+
+@pytest.mark.parametrize("k,h", [(1, (1.0, 1.0, 1.0)), (2, (1.0, 1.0, 1.0)),
+                                 (4, (1.0, 1.0, 1.0)), (2, (1.0, 0.5, 2.0))])
+def test_ref_matches_tpu_sweep_interpret(k, h):
+    dt = 0.3 * h[0]
+    g = tf.Grid3D(12, 16, 32, hx=h[0], hy=h[1], hz=h[2])
+    up, uc = _fast_ic(g, 10 + k)
+    _assert_ref_matches(g, up, uc, dt, k, *_tpu_sweep(g, up, uc, dt, k))
+
+
+@pytest.mark.parametrize("order,k", [(2, 1), (2, 2), (6, 1), (6, 2)])
+def test_ref_matches_tpu_sweep_interpret_radius_1_and_3(order, k):
+    """sweep_fused's own radius-1 and radius-3 modes (_sweep_kernel)."""
+    g = tf.Grid3D(8, 8, 16, hx=1.0, hy=1.0, hz=1.0, order=order)
+    up, uc = _fast_ic(g, 20 + order + k)
+    _assert_ref_matches(g, up, uc, 0.3, k, *_tpu_sweep(g, up, uc, 0.3, k))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_ref_matches_tpu_packed_interpret_radius_4(k):
+    """Order 8: K = 1 is packed_step, K = 2 packed_fused2. The JAX engine's
+    packed ring holds the core levels in U with one shared z rim; packed_step
+    reads the pair [prev, cur] (cur = 1) and writes u_{n+1} into level
+    1 - cur = 0; packed_fused2 reads the source pair at levels (2, 3)
+    (src_pair = 2, prev_first: prev at 2, cur at 3) and writes
+    (u_{n+1}, u_{n+2}) into levels (0, 1)."""
+    import jax.numpy as jnp
+
+    g = tf.Grid3D(12, 16, 16, hx=1.0, hy=1.0, hz=1.0, order=8)
+    up, uc = _fast_ic(g, 30 + k)
+    lay = ZSplitLayout(g)
+    p_core, p_zrim = lay.split(up)
+    c_core, _ = lay.split(uc)
+    zr = jnp.asarray(p_zrim)
+    if k == 1:
+        bx, by = jpz.choose_tiling(g)
+        out = np.asarray(jpz.packed_step(jnp.asarray(np.stack([p_core, c_core])), zr, grid=g,
+                                         dt=0.3, bx=bx, by=by, m_val=1.5, cur=1,
+                                         interpret=True))
+        want_prev, want_cur = lay.join(out[1], p_zrim), lay.join(out[0], p_zrim)
+    else:
+        bx, by = jpz.choose_tiling_fused2(g)
+        U4 = jnp.asarray(np.stack([p_core, p_core, p_core, c_core]))
+        out = np.asarray(jpz.packed_fused2(U4, zr, grid=g, dt=0.3, bx=bx, by=by, m_val=1.5,
+                                           src_pair=2, prev_first=True, interpret=True))
+        want_prev, want_cur = lay.join(out[0], p_zrim), lay.join(out[1], p_zrim)
+    _assert_ref_matches(g, up, uc, 0.3, k, want_prev, want_cur)
 
 
 def test_ref_is_k_plain_steps_with_frozen_rims():
@@ -87,7 +136,8 @@ def test_wrapper_runs_plain_version_on_cpu():
     out = U.clone()
     sw.reset_counts()
     res = sw.sweep_fused(U, out, grid=g, dt=0.001, m_val=1.5, k_fuse=2)
-    assert res is out and sw.counts == {"kernel": 0, "plain": 1}
+    assert res is out and sw.counts == {"kernel": {}, "plain": {(2, 2): 1}}
+    assert sw.launches("plain") == 1 and sw.launches() == 0
     np.testing.assert_array_equal(
         out.numpy(), sw.sweep_fused_ref(U, grid=g, dt=0.001, m_val=1.5, k_fuse=2).numpy()
     )
@@ -95,14 +145,14 @@ def test_wrapper_runs_plain_version_on_cpu():
 
 @pytest.mark.parametrize("bad", ["order", "k0", "kdeep", "alias", "m_field", "dtype"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    g = tt.Grid3D(6, 6, 6, order=6 if bad == "order" else 4)
+    g = tt.Grid3D(6, 6, 6, order=10 if bad == "order" else 4)
     U = torch.zeros((2,) + g.padded_shape)
     out = U.clone()
     k, m = 2, 1.5
     if bad == "k0":
         k = 0
     elif bad == "kdeep":
-        k = sw.k_max() + 1
+        k = sw.k_max(g.radius) + 1
     elif bad == "alias":
         out = U
     elif bad == "m_field":
@@ -114,12 +164,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_tiles_fit_shared_memory():
-    assert sw.k_max() == max(sw.TILES) == 4
-    for k, tile in sw.TILES.items():
-        assert sw.smem_bytes(k) <= sw.SMEM_LIMIT
-        planes = 4 + 6 + 5 * (k - 1)
-        assert sw.smem_bytes(k) == 4 * planes * (tile[1] + 4 * k) * (tile[2] + 4 * k)
-    assert sw.smem_bytes(5, sw.TILES[4]) > sw.SMEM_LIMIT
+    """Every (R, K) of TILES fits 227 KB, with rings of R+2, 2R+2 and 2R+1
+    planes (csrc/stencil_sweep.cu); each radius has K = 1..k_max(R), and
+    one level deeper fits no probed column."""
+    assert {r for r, _ in sw.TILES} == set(sw.RADII) == {1, 2, 3, 4}
+    for (r, k), tile in sw.TILES.items():
+        assert sw.smem_bytes(r, k) <= sw.SMEM_LIMIT
+        planes = (r + 2) + (2 * r + 2) + (2 * r + 1) * (k - 1)
+        g2 = 2 * k * r
+        assert sw.smem_bytes(r, k) == 4 * planes * (tile[1] + g2) * (tile[2] + g2)
+    for r in sw.RADII:
+        kmax = sw.k_max(r)
+        assert sorted(k for rr, k in sw.TILES if rr == r) == list(range(1, kmax + 1))
+        assert sw.smem_bytes(r, kmax + 1, (512, 8, 16, 8)) > sw.SMEM_LIMIT or kmax == 4
+    assert sw.k_max(2) == 4 and sw.k_max(4) == 3
+    assert sw.smem_bytes(2, 5, sw.TILES[2, 4]) > sw.SMEM_LIMIT
     g = tt.Grid3D(6, 6, 6)
     U = torch.zeros((2,) + g.padded_shape)
     with pytest.raises(ValueError, match="shared memory"):
@@ -129,6 +188,6 @@ def test_tiles_fit_shared_memory():
 def test_gpu_shapes_span_several_x_chunks():
     """tests/test_torch_gpu.py and chip_smoke.py check kernel B at nx = 1100
     for the code that stitches a block's x-chunks: wider than one chunk at
-    every K, as 512^3 is at K = 1."""
+    every (R, K), as 512^3 is at R = 1-2, K = 1."""
     assert all(tile[0] < 1100 // 2 for tile in sw.TILES.values())
-    assert sw.TILES[1][0] < 512
+    assert sw.TILES[1, 1][0] < 512 and sw.TILES[2, 1][0] < 512

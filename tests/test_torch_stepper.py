@@ -55,7 +55,7 @@ def _run_fast(g, nsteps, coords=None, seed=0, cfg_kw=None, expect_k=None):
 def test_fast_ring_step_counts(nsteps):
     g, _ = _grids(12, 16, 20, hx=1.0, hy=1.0, hz=1.0)
     coords = np.array([[6.0, 8.0, 10.0]], np.float32)
-    sim, state, (p, c), (tp, tc) = _run_fast(g, nsteps, coords, expect_k=stepper.K_AUTO)
+    sim, state, (p, c), (tp, tc) = _run_fast(g, nsteps, coords, expect_k=stepper.K_AUTO[2])
     assert isinstance(state, dict)
     assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL
 
@@ -75,16 +75,44 @@ def test_fast_ring_anisotropic_spacing():
     assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL
 
 
-@pytest.mark.parametrize("x,k_auto,want_k", [(3.0, 4, 2), (5.0, 4, 3), (1.0, 2, 0), (-0.5, 2, 0)])
+def _jax_state(gj, cfg, m, coords, up, uc):
+    sim = tf.Simulator(gj, cfg, m, coords)
+    return sim, sim.prepare_state(up, uc)
+
+
+@pytest.mark.parametrize("x,k_auto,want_k", [(3.0, 4, 2), (5.0, 4, 3), (1.0, 2, 1), (-0.5, 2, 0)])
 def test_near_boundary_source_degrades_k(monkeypatch, x, k_auto, want_k):
-    """Correction cubes that do not fit the interior degrade K; no K >= 2
-    (or a rim deposit) leaves the exact ring. Results stay exact."""
-    monkeypatch.setattr(stepper, "K_AUTO", k_auto)
-    g, _ = _grids(16, 16, 16, hx=1.0, hy=1.0, hz=1.0)
+    """Correction cubes that do not fit the interior degrade K, down to
+    K = 1 on the fast ring, as the JAX package falls back to packed_step
+    (key packed2); a rim deposit leaves the exact ring. Results stay exact.
+    At x = -0.5 the deposit lands in the x rim: the JAX package checks only
+    the z rim, stays on the fast ring and misses the oracle there."""
+    monkeypatch.setitem(stepper.K_AUTO, 2, k_auto)
+    g, gj = _grids(16, 16, 16, hx=1.0, hy=1.0, hz=1.0)
     coords = np.array([[x, 8.0, 8.0]], np.float32)
     sim, state, got, truth = _run_fast(g, 7, coords, expect_k=want_k)
     assert isinstance(state, dict) == (want_k > 0)
     assert rel_l2(got[1], truth[1]) < TOL
+    if want_k > 1:
+        return
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    if want_k == 1:
+        _, st = _jax_state(gj, tf.SimConfig(dt=0.001, backend="pallas"), m, coords,
+                           *_fast_ic(g))
+        assert next(iter(st)).startswith("packed2")
+        return
+    u0 = np.zeros(g.padded_shape, np.float32)
+    src = tf.ricker_table(7, 1, 0.001)
+    cfg = tf.SimConfig(dt=0.001, nsteps=7, backend="pallas")
+    sim_j, st = _jax_state(gj, cfg, m, coords, u0, u0)
+    assert isinstance(st, dict)
+    _, c_jax = sim_j.extract_state(sim_j.run(st, src, 7))
+    _, c_port = tt.simulate(u0, u0, m, g, tt.SimConfig(dt=0.001, nsteps=7), src, coords,
+                            device="cpu")
+    _, c_true = tt.oracle_run(u0, u0, m, g, 0.001, 7, src=src, src_coords=coords,
+                              dtype=np.float64)
+    assert rel_l2(c_port, c_true) < TOL
+    assert rel_l2(c_jax, c_true) > 1e-2
 
 
 def test_fast_ring_matches_jnp_exact_ring():
@@ -182,19 +210,39 @@ def test_cuda_device_without_card_raises():
         tt.Simulator(g, tt.SimConfig(), np.ones(g.padded_shape, np.float32), device="cuda")
 
 
-@pytest.mark.parametrize("case", ["bf16", "hetero_fast", "order6_fast", "mixed_rims_fast"])
+def test_simulator_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the CPU-only case")
+    g = tt.Grid3D(8, 8, 8)
+    m = np.ones(g.padded_shape, np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tt.Simulator(g, tt.SimConfig(), m)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tt.simulate(m, m, m, g, tt.SimConfig(nsteps=1))
+
+
+@pytest.mark.parametrize("case", ["bf16", "hetero_fast", "order12_fast", "mixed_rims_fast",
+                                  "hetero_order8_auto"])
 def test_unported_paths_raise(case):
-    g = tt.Grid3D(8, 8, 8, order=6 if case == "order6_fast" else 4)
+    order = {"order12_fast": 12, "hetero_order8_auto": 8}.get(case, 4)
+    g = tt.Grid3D(8, 8, 8, order=order)
     m = np.full(g.padded_shape, 1.5, np.float32)
     kw = {}
     if case == "bf16":
         kw = {"storage_dtype": "bfloat16"}
-    elif case == "hetero_fast":
+    elif case in ("hetero_fast", "hetero_order8_auto"):
         m[4, 4, 4] = 2.0
     else:
         kw = {"ring": "fast"}
     cfg = tt.SimConfig(**kw)
-    if case == "mixed_rims_fast":
+    if case == "hetero_order8_auto":
+        # as in the JAX package, radius 4 with a heterogeneous m takes the
+        # exact ring; asking for the fast ring raises
+        sim = tt.Simulator(g, cfg, m, device="cpu")
+        up, uc, _ = make_correctness_ic(g)
+        assert sim.engine.sweep_k == 0 and len(sim.prepare_state(uc, uc)) == 3
+        cfg = tt.SimConfig(ring="fast")
+    elif case == "mixed_rims_fast":
         sim = tt.Simulator(g, cfg, m, device="cpu")
         up, uc, _ = make_correctness_ic(g)
         with pytest.raises(ValueError, match="identical rims"):
@@ -202,3 +250,59 @@ def test_unported_paths_raise(case):
         return
     with pytest.raises(NotImplementedError):
         tt.Simulator(g, cfg, m, device="cpu")
+
+
+@pytest.mark.parametrize("order", [2, 4, 6, 8, 10, 12])
+def test_slice_levels_and_oracle_every_order(order):
+    """Simulator(backend="cuda") with uniform m, identical rims, one source
+    and ring="auto" holds as many levels as the JAX package's "pallas"
+    backend (2 on the fast ring at orders 2-8, 3 on the exact ring at
+    10-12) and its u_N is within 1e-5 rel-L2 of the f64 oracle. The JAX
+    package's levels come from its prepared state, whose kind the run keeps."""
+    g, gj = _grids(16, 16, 16, hx=1.0, hy=1.0, hz=1.0, order=order)
+    coords = tf.default_source_coords(1, 16, 16, 16, h=1.0)
+    sim, state, got, truth = _run_fast(g, 6, coords, seed=order)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    up, uc = _fast_ic(g, order)
+    sim_j, st_j = _jax_state(gj, tf.SimConfig(dt=0.001, nsteps=6, backend="pallas"), m,
+                             coords, up, uc)
+    assert len(got) == len(sim_j.extract_state(st_j)) == (2 if order <= 8 else 3)
+    assert rel_l2(got[1], truth[1]) < 1e-5
+
+
+@pytest.mark.parametrize("t_fuse", [1, 2])
+def test_order8_fast_ring_matches_jax_packed(t_fuse):
+    """Order 8 on the fast ring at K = t_fuse against the JAX package's
+    packed_step (t_fuse 1) and packed_fused2 (t_fuse 2) ring, with a source
+    and an odd first span (3 + 6 steps), and against the f64 oracle."""
+    g, gj = _grids(24, 16, 32, hx=1.0, hy=1.0, hz=1.0, order=8)
+    coords = np.array([[11.5, 7.5, 15.5]], np.float32)
+    up, uc = _fast_ic(g, 8)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    src = tt.ricker_table(9, 1, 0.001)
+
+    def spans(sim):
+        st = sim.run(sim.prepare_state(up, uc), src[:3], 3)
+        return sim.extract_state(sim.run(st, src[3:], 6))
+
+    sim = tt.Simulator(g, tt.SimConfig(dt=0.001, ring="fast", t_fuse=t_fuse), m, coords,
+                       device="cpu")
+    assert sim.engine.sweep_k == t_fuse
+    p, c = spans(sim)
+    sim_j = tf.Simulator(gj, tf.SimConfig(dt=0.001, backend="pallas", ring="fast",
+                                          t_fuse=t_fuse), m, coords)
+    assert sim_j.engine.t_fuse == t_fuse and not sim_j.engine.sweep_k
+    pj, cj = spans(sim_j)
+    tp, tc = tt.oracle_run(up, uc, m, g, 0.001, 9, src=src, src_coords=coords,
+                           dtype=np.float64)
+    assert rel_l2(c, cj) < TOL and rel_l2(p, pj) < TOL
+    assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL
+
+
+def test_order8_deepest_k_correction_cubes():
+    """Order 8 at its deepest K, k_max(4) = 3, with a source: the correction
+    cubes spread R*(K-1) = 8 cells around the deposit."""
+    g, _ = _grids(24, 24, 24, hx=1.0, hy=1.0, hz=1.0, order=8)
+    coords = np.array([[11.3, 11.6, 12.2]], np.float32)
+    _, _, (p, c), (tp, tc) = _run_fast(g, 7, coords, cfg_kw={"t_fuse": 3}, expect_k=3)
+    assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL

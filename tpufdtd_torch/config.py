@@ -137,8 +137,8 @@ class SimConfig:
     backend: "cuda" runs the hand-written Hopper kernels (the default);
     "torch" runs the plain eager step on any device.
     t_fuse: steps per fused sweep call on the fast ring; 0 picks the port's
-    own depth (stepper.K_AUTO), 1..ops.stencil_sweep.k_max() asks for
-    exactly that depth.
+    own depth for the order (stepper.K_AUTO), 1..ops.stencil_sweep.k_max(R)
+    asks for exactly that depth.
     ring: "exact" 3-level ring, "fast" 2-level ring (raises when illegal),
     "auto" picks the fast ring when it is legal.
     pair and overlap are accepted for compatibility with the JAX package's

@@ -1,11 +1,14 @@
 // Kernel B: K fused leapfrog steps per pass over device memory.
 //
-// Replaces tpufdtd/ops/stencil_sweep.py:sweep_fused (the fast two-level
-// ring behind Simulator). Input U_in = [u_{n-1}, u_n], output
-// U_out = [u_{n+K-1}, u_{n+K}], both [2, nx+2H, ny+2H, nz+2H] f32 in the
-// reference layout, scalar m, radius 2 (order 4). Rims stay frozen: the
-// kernel writes interior points only, and every stage keeps cells outside
-// the global interior at their frozen (loaded) values.
+// Replaces the kernels of the fast two-level ring behind Simulator:
+// tpufdtd/ops/stencil_sweep.py:sweep_fused (radius 1-3, any K),
+// tpufdtd/ops/stencil_pallas_z.py:packed_step (one step, radius <= 4; here
+// K = 1) and packed_fused2 (two steps; here radius 4, K = 2). Input
+// U_in = [u_{n-1}, u_n], output U_out = [u_{n+K-1}, u_{n+K}], both
+// [2, nx+2H, ny+2H, nz+2H] f32 in the reference layout, scalar m, radius R
+// = 1..4 (orders 2-8, a template parameter). Rims stay frozen: the kernel
+// writes interior points only, and every stage keeps cells outside the
+// global interior at their frozen (loaded) values.
 //
 // Bound: device memory. One step alone moves 12 B per point (read cur and
 // prev, write next); K fused steps move 16 B per point per K steps, plus
@@ -19,7 +22,10 @@
 // p - s*R of level u_{n+s}, over a (y, z) region R*(K-s) cells wider than
 // the column. Each level lives in a shared-memory ring of planes; stage K
 // writes straight to device memory. The halo costs (TY+2KR)(TZ+2KR)/(TY*TZ)
-// in loads and 2KR/XC planes in x.
+// in loads and 2KR/XC planes in x. The rings take
+// 4 (PREV + CUR + RING (K-1)) (TY+2KR) (TZ+2KR) bytes of shared memory, at
+// most 227 KB, so a larger R or K takes a narrower column
+// (tpufdtd_torch/ops/stencil_sweep.py:TILES).
 //
 // Not in place, unlike the TPU kernel: there one program swept x in order,
 // so it could overwrite planes it had finished reading. Hopper blocks run in
@@ -27,10 +33,11 @@
 // result goes to a second buffer and the stepper ping-pongs between the
 // two (two more levels of device memory).
 //
-// Arithmetic: leap_isotropic of the TPU kernel when hx == hy == hz (one
-// accumulator, scale = dt*dt*r2/m rounded on the host), else the oracle's
-// exact form. nvcc contracts FMAs, so results differ from the plain version
-// by a few ulp per step.
+// Arithmetic: leap_isotropic of the TPU sweep kernel when hx == hy == hz
+// (one accumulator, scale = dt*dt*r2/m rounded on the host), else the
+// oracle's exact form, which is also what packed_step and packed_fused2
+// compute. The two differ by association order only; nvcc contracts FMAs,
+// so results differ from the plain version by a few ulp per step.
 
 #include <cuda_pipeline_primitives.h>
 
@@ -38,15 +45,18 @@
 
 namespace {
 
-constexpr int R = 2;
-constexpr int RING = 2 * R + 1;       // planes per ring of u_{n+1} .. u_{n+K-1}
-constexpr int PREV_RING = R + 2;      // u_{n-1}: planes p-R .. p+1
-constexpr int CUR_RING = 2 * R + 2;   // u_n: planes p-2R .. p+1
+// Shared-memory plane rings of one level, in planes, at radius R.
+template <int R>
+struct Rings {
+  static constexpr int RING = 2 * R + 1;      // each of u_{n+1} .. u_{n+K-1}
+  static constexpr int PREV = R + 2;          // u_{n-1}: planes p-R .. p+1
+  static constexpr int CUR = 2 * R + 2;       // u_n: planes p-2R .. p+1
+};
 constexpr int BATCH = 4;      // z points per thread per pass of a stage
 
 // Update at offset o of the centre plane; x[d] points to plane x-R+d,
 // sy is the y stride of a plane (z is contiguous).
-template <bool ISO>
+template <int R, bool ISO>
 __device__ __forceinline__ float leap(const float* const* x, int o, int sy,
                                       float up, const Coeffs& c) {
   const float* u = x[R];
@@ -111,20 +121,23 @@ struct Walk {
 };
 
 // The ring slot holding plane x of level j (-1 = u_{n-1}, 0 = u_n, ...).
+template <int R>
 __device__ __forceinline__ float* plane(float* smem, const Geometry& g, int j,
                                         int x) {
-  if (j < 0) return smem + (x % PREV_RING) * g.PS;
-  if (j == 0) return smem + (PREV_RING + x % CUR_RING) * g.PS;
-  return smem + (PREV_RING + CUR_RING + (j - 1) * RING + x % RING) * g.PS;
+  using Q = Rings<R>;
+  if (j < 0) return smem + (x % Q::PREV) * g.PS;
+  if (j == 0) return smem + (Q::PREV + x % Q::CUR) * g.PS;
+  return smem + (Q::PREV + Q::CUR + (j - 1) * Q::RING + x % Q::RING) * g.PS;
 }
 
 // Start the copies of input plane p of both levels into their rings, as
 // one commit group (empty when !live, which keeps the group count uniform).
+template <int R>
 __device__ __forceinline__ void load_plane(float* smem, const Geometry& g,
                                            const float* __restrict__ uin,
                                            int p, bool live) {
-  float* dp = plane(smem, g, -1, p);
-  float* dc = plane(smem, g, 0, p);
+  float* dp = plane<R>(smem, g, -1, p);
+  float* dc = plane<R>(smem, g, 0, p);
   const int64_t base = (int64_t)p * g.gsx + (int64_t)g.y0 * g.nzp + g.z0;
   const int w = g.zb - g.za, n = w * (g.yb - g.ya);
   const int nt = blockDim.x * blockDim.y;
@@ -143,7 +156,7 @@ __device__ __forceinline__ void load_plane(float* smem, const Geometry& g,
   __pipeline_commit();
 }
 
-template <bool ISO>
+template <int R, bool ISO>
 __global__ void sweep_kernel(const float* __restrict__ uin,
                              float* __restrict__ uout, int nx, int ny, int nz,
                              int halo, int K, int TY, int TZ, int XC, Coeffs c) {
@@ -168,11 +181,11 @@ __global__ void sweep_kernel(const float* __restrict__ uin,
   const int iy0 = halo - g.y0, iy1 = halo + ny - g.y0;
   const int iz0 = halo - g.z0, iz1 = halo + nz - g.z0;
 
-  load_plane(smem, g, uin, p0, true);
+  load_plane<R>(smem, g, uin, p0, true);
   for (int p = p0; p < xe + g.G; ++p) {
     __pipeline_wait_prior(0);
     __syncthreads();  // plane p has landed; iteration p-1 is done with its slots
-    load_plane(smem, g, uin, p + 1, p + 1 < p1);
+    load_plane<R>(smem, g, uin, p + 1, p + 1 < p1);
     for (int s = 1; s <= K; ++s) {
       const int x = p - s * R;
       const int e = R * (K - s);
@@ -181,10 +194,10 @@ __global__ void sweep_kernel(const float* __restrict__ uin,
         const float* in[2 * R + 1];
 #pragma unroll
         for (int d = 0; d <= 2 * R; ++d)
-          in[d] = plane(smem, g, s - 1, x_in ? x - R + d : x);
-        const float* prev = plane(smem, g, s - 2, x);
-        const float* done = s == K ? plane(smem, g, K - 1, x) : nullptr;
-        float* outp = s < K ? plane(smem, g, s, x) : nullptr;
+          in[d] = plane<R>(smem, g, s - 1, x_in ? x - R + d : x);
+        const float* prev = plane<R>(smem, g, s - 2, x);
+        const float* done = s == K ? plane<R>(smem, g, K - 1, x) : nullptr;
+        float* outp = s < K ? plane<R>(smem, g, s, x) : nullptr;
         const int ya = max(g.G - e, g.ya), yb = min(g.G + TY + e, g.yb);
         const int za = max(g.G - e, g.za), zb = min(g.G + TZ + e, g.zb);
         // BATCH cells per thread per pass, all computed before any is
@@ -206,7 +219,7 @@ __global__ void sweep_kernel(const float* __restrict__ uin,
             const int o = ly[j] * g.PZ + lz[j];
             inside[j] = x_in && ly[j] >= iy0 && ly[j] < iy1 && lz[j] >= iz0 && lz[j] < iz1;
             v[j] = 0.0f;
-            if (i + j * nt < n) v[j] = inside[j] ? leap<ISO>(in, o, g.PZ, prev[o], c) : in[R][o];
+            if (i + j * nt < n) v[j] = inside[j] ? leap<R, ISO>(in, o, g.PZ, prev[o], c) : in[R][o];
           }
 #pragma unroll
           for (int j = 0; j < BATCH; ++j) {
@@ -228,21 +241,31 @@ __global__ void sweep_kernel(const float* __restrict__ uin,
   }
 }
 
-template <bool ISO>
+template <int R, bool ISO>
 int launch(const float* uin, float* uout, int nx, int ny, int nz, int halo,
            int k, int xc, int ty, int tz, int ythreads, const Coeffs& c,
            cudaStream_t stream) {
+  using Q = Rings<R>;
   const int g2 = 2 * k * R;
-  const int planes = PREV_RING + CUR_RING + RING * (k - 1);
+  const int planes = Q::PREV + Q::CUR + Q::RING * (k - 1);
   const size_t smem = sizeof(float) * (size_t)planes * (ty + g2) * (tz + g2);
   cudaError_t e = cudaFuncSetAttribute(
-      sweep_kernel<ISO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sweep_kernel<R, ISO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 block(32, ythreads, 1);
   const dim3 grid((nz + tz - 1) / tz, (ny + ty - 1) / ty, (nx + xc - 1) / xc);
-  sweep_kernel<ISO><<<grid, block, smem, stream>>>(uin, uout, nx, ny, nz, halo,
-                                                   k, ty, tz, xc, c);
+  sweep_kernel<R, ISO><<<grid, block, smem, stream>>>(uin, uout, nx, ny, nz,
+                                                      halo, k, ty, tz, xc, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_r(const float* uin, float* uout, int nx, int ny, int nz, int halo,
+             int k, bool isotropic, int xc, int ty, int tz, int ythreads,
+             const Coeffs& c, cudaStream_t s) {
+  return isotropic
+             ? launch<R, true>(uin, uout, nx, ny, nz, halo, k, xc, ty, tz, ythreads, c, s)
+             : launch<R, false>(uin, uout, nx, ny, nz, halo, k, xc, ty, tz, ythreads, c, s);
 }
 
 }  // namespace
@@ -253,10 +276,14 @@ extern "C" int tpufdtd_sweep(const float* uin, float* uout, int nx, int ny,
                              int nz, int halo, int radius, int k, int isotropic,
                              int xc, int ty, int tz, int ythreads,
                              const float* coeffs, void* stream) {
-  if (radius != R) return 1000 + radius;
   const Coeffs c = coeffs_from_host(coeffs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return isotropic
-             ? launch<true>(uin, uout, nx, ny, nz, halo, k, xc, ty, tz, ythreads, c, s)
-             : launch<false>(uin, uout, nx, ny, nz, halo, k, xc, ty, tz, ythreads, c, s);
+  const bool iso = isotropic != 0;
+  switch (radius) {
+    case 1: return launch_r<1>(uin, uout, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
+    case 2: return launch_r<2>(uin, uout, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
+    case 3: return launch_r<3>(uin, uout, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
+    case 4: return launch_r<4>(uin, uout, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
+    default: return 1000 + radius;
+  }
 }

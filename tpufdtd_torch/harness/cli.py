@@ -31,7 +31,8 @@ def main(argv=None):
     p.add_argument("--backends", nargs="*", default=["torch", "cuda"])
     p.add_argument("--csv", default="benchmark.csv")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--order", type=int, default=4)
+    p.add_argument("--order", type=int, default=4,
+                   help="stencil order 2-12, for the correctness ladder and the perf sweep")
     p.add_argument("--hbm-frac", type=float, default=0.8,
                    help="fraction of device memory the working-set guard may use")
     p.add_argument("--skip-correctness", action="store_true")
@@ -51,7 +52,8 @@ def main(argv=None):
     ok = True
     if not args.skip_correctness:
         print("\n=== Step 1: Correctness ===")
-        reports = run_correctness(args.sizes, args.steps, args.backends, device=args.device)
+        reports = run_correctness(args.sizes, args.steps, args.backends, order=args.order,
+                                  device=args.device)
         ok = all(r.passed for r in reports)
 
     if not args.skip_perf:

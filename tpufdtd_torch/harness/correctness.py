@@ -71,11 +71,13 @@ def make_ic(grid: Grid3D):
 
 def run_correctness_single(size: int, nsteps: int = 50,
                            backends: Iterable[str] = ("torch", "cuda"),
-                           verbose: bool = True, *, device) -> List[ErrorReport]:
-    grid = Grid3D(size, size, size, hx=1.0, hy=1.0, hz=1.0)
+                           verbose: bool = True, order: int = 4, *,
+                           device) -> List[ErrorReport]:
+    grid = Grid3D(size, size, size, hx=1.0, hy=1.0, hz=1.0, order=order)
     up0, uc0, m = make_ic(grid)
     if verbose:
-        print(f"\nTest configuration: {size}x{size}x{size} grid, {nsteps} timesteps")
+        print(f"\nTest configuration: {size}x{size}x{size} grid, {nsteps} timesteps,"
+              f" order {order}")
         print("Running f64 truth...")
     truth = np.stack(truth_run_ring(up0, uc0, m, grid, 0.001, nsteps, device=device))
 
@@ -101,11 +103,12 @@ def run_correctness_single(size: int, nsteps: int = 50,
 
 def run_correctness(sizes: Iterable[int] = DEFAULT_SIZES, nsteps: int = 50,
                     backends: Iterable[str] = ("torch", "cuda"),
-                    verbose: bool = True, *, device) -> List[ErrorReport]:
+                    verbose: bool = True, order: int = 4, *,
+                    device) -> List[ErrorReport]:
     """Correctness ladder over the reference's sizes 32^3-512^3 (main.cpp:679)."""
     out: List[ErrorReport] = []
     for s in sizes:
-        out.extend(run_correctness_single(s, nsteps, backends, verbose, device=device))
+        out.extend(run_correctness_single(s, nsteps, backends, verbose, order, device=device))
     if verbose:
         ok = all(r.passed for r in out)
         print(f"\nOverall correctness: {'PASS' if ok else 'FAIL'} "

@@ -1,9 +1,9 @@
 """Builds and loads the hand-written Hopper kernels.
 
-All of `tpufdtd_torch/csrc/*.cu` is compiled on first use, with nvcc, into
-one shared library with a plain C interface, cached in
-`tpufdtd_torch/_build/` under a hash of the sources and flags, and loaded
-with ctypes. Pointers and the CUDA stream cross as `c_void_p`; each C entry
+All of `tpufdtd_torch/csrc/*.cu` is compiled on first use, with nvcc (one
+process per source, all started together), and linked into one shared
+library with a plain C interface, cached in `tpufdtd_torch/_build/` under a
+hash of the sources and flags, and loaded with ctypes. Pointers and the CUDA stream cross as `c_void_p`; each C entry
 returns `cudaGetLastError()` after its launch, and `check` raises on any
 nonzero code. A missing nvcc raises: nothing falls back.
 """
@@ -21,11 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,20 +67,8 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libtpufdtd_torch_{tag}.so"
     log = BUILD_DIR / f"libtpufdtd_torch_{tag}.log"
     if not so.exists():
-        nvcc = nvcc_path()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        sources = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *sources]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            log.write_text(_compile_and_link(nvcc_path(), Path(tmp), so))
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -92,6 +77,39 @@ def library() -> ctypes.CDLL:
     _loaded["lib"] = lib
     _loaded["log"] = log.read_text() if log.exists() else ""
     return lib
+
+
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(cmd, proc) -> str:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return out
+
+
+def _compile_and_link(nvcc: str, tmp: Path, so: Path) -> str:
+    """One nvcc per source, all running at once, then one link; returns
+    their output. The library appears at `so` only when all succeeded."""
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [str(tmp / f"{src.stem}.o") for src in sources]
+    jobs = []
+    for src, obj in zip(sources, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)]
+        jobs.append((cmd, _run(cmd)))
+    try:
+        out = "".join(_wait(cmd, proc) for cmd, proc in jobs)
+    finally:
+        for _cmd, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp / so.name), *objs]
+    out += _wait(cmd, _run(cmd))
+    os.replace(tmp / so.name, so)
+    return out
 
 
 def build_log() -> str:

@@ -1,16 +1,22 @@
 """Kernel A: one leapfrog step from (cur, prev) into a separate target.
 
-Replaces tpufdtd/ops/stencil_pallas_z.py:leapfrog_step_zsplit, the kernel
-of the exact three-level ring. The CUDA source is csrc/stencil_step.cu
-(one thread per interior point, radius 1-6, scalar or per-point m; bound
-by device memory at 12 B per point, 16 B with a per-point m). It writes
-only the target's interior, so each ring level keeps its own rim.
+Replaces the kernels of the exact three-level ring:
+tpufdtd/ops/stencil_pallas_z.py:leapfrog_step_zsplit (radius <= 4) and
+tpufdtd/ops/stencil_pallas.py:leapfrog_step_pallas (any order 2-12; the
+ring at orders 10-12). The CUDA source is csrc/stencil_step.cu (one thread
+per interior point, radius 1-6, scalar or per-point m; bound by device
+memory at 12 B per point, 16 B with a per-point m). It writes only the
+target's interior, so each ring level keeps its own rim, as
+leapfrog_step_pallas stores the target's rim back.
 
 `leapfrog_step` launches the kernel for CUDA tensors and runs the plain
-version `leapfrog_step_ref` for CPU tensors; `counts` records which ran.
+version `leapfrog_step_ref` for CPU tensors; `counts` records which ran,
+per radius.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -18,11 +24,19 @@ import torch
 from ..config import Grid3D
 from . import _build, stencil_torch
 
-counts = {"kernel": 0, "plain": 0}
+# launches per radius: counts["kernel"] of the CUDA kernel, counts["plain"]
+# of the plain version
+counts = {"kernel": Counter(), "plain": Counter()}
 
 
 def reset_counts() -> None:
-    counts.update(kernel=0, plain=0)
+    for c in counts.values():
+        c.clear()
+
+
+def launches(route: str = "kernel") -> int:
+    """Launches of `route` since the last reset, over every radius."""
+    return sum(counts[route].values())
 
 
 def coeff_values(grid: Grid3D, dt: float, m_val) -> list:
@@ -40,7 +54,7 @@ def coeff_values(grid: Grid3D, dt: float, m_val) -> list:
 
 def leapfrog_step_ref(cur, prev, m, target, *, grid: Grid3D, dt: float):
     """Plain PyTorch version of the kernel: the eager step into target."""
-    counts["plain"] += 1
+    counts["plain"][grid.radius] += 1
     return stencil_torch.leapfrog_step(cur, prev, m, target, grid=grid, dt=dt)
 
 
@@ -91,5 +105,5 @@ def leapfrog_step(cur, prev, m, target, *, grid: Grid3D, dt: float):
             grid.radius, coeffs, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "leapfrog_step")
-    counts["kernel"] += 1
+    counts["kernel"][grid.radius] += 1
     return target

@@ -166,7 +166,9 @@ def injection_cubes_upto(grid: Grid3D, term: SourceTerm, m_val: float, dt: float
     if term.empty or kmax < 2:
         return out
     R = grid.radius
-    n_mini = 16 + 8 * max(0, kmax - 3)
+    # C_j spreads R*(j-1) cells each way from the 2-cell corner pattern at
+    # ctr, which must stay inside the scratch grid's interior
+    n_mini = max(16 + 8 * max(0, kmax - 3), 2 * R * (kmax - 1) + 2)
     mini = Grid3D(n_mini, n_mini, n_mini, hx=grid.hx, hy=grid.hy, hz=grid.hz,
                   order=grid.order)
     h = mini.halo

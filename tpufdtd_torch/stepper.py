@@ -10,9 +10,13 @@ Rings:
     reference's %3 ring, per-level frozen rims included.
   * fast: two levels U = [u_{n-1}, u_n], advanced K steps per kernel-B
     call, sources added exactly after each block by superposition
-    (sources.injection_cubes_upto). Legal when all levels share identical
-    rims and no source deposits in a rim; kernel B writes into a second
-    buffer, so the state holds U and a spare with the same rims.
+    (sources.injection_cubes_upto). Legal at orders 2-8 with a uniform m
+    when all levels share identical rims and no source deposits in a rim
+    (any face: the JAX package checks only the z rim); kernel B writes
+    into a second buffer, so the state holds U and a spare with the same
+    rims. K is K_AUTO[radius], degraded while the correction cubes do not
+    fit the interior, down to K = 1, which needs no cube (the role of the
+    JAX package's packed_step).
 
 Engines:
   * TorchEngine ("torch"): the exact ring on the plain eager step.
@@ -39,8 +43,10 @@ from .sources import (
     injection_cubes_upto,
 )
 
-# Fusion depth of the fast ring when SimConfig.t_fuse == 0 (PERF.md).
-K_AUTO = 2
+# Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0: the
+# fastest K >= 2 per step at 512^3 on an H100 (harness/tile_probe.py;
+# PERF.md).
+K_AUTO = {1: 2, 2: 2, 3: 2, 4: 2}
 
 
 def resolve_device(device) -> torch.device:
@@ -122,16 +128,21 @@ class CudaEngine(_Engine):
 
     def _init_sweep(self):
         grid, cfg = self.grid, self.cfg
-        if self.m_val is None:
-            raise NotImplementedError(
-                "a heterogeneous medium on the fused sweep kernel is not ported"
-                " yet; use ring='exact'"
-            )
+        R = grid.radius
         if not stencil_sweep.supported(grid):
             if cfg.ring == "fast":
                 raise NotImplementedError(
-                    f"the fast ring runs order {2 * stencil_sweep.RADIUS} only;"
-                    f" order {grid.order} needs ring='exact' in this port"
+                    f"the fast ring runs orders 2-8; order {grid.order} needs"
+                    " ring='exact'"
+                )
+            return
+        if self.m_val is None:
+            # the JAX package streams a per-point w through its sweep at
+            # radius <= 3 and takes the exact ring at radius 4
+            if R <= 3 or cfg.ring == "fast":
+                raise NotImplementedError(
+                    "a heterogeneous medium on the fused sweep kernel is not"
+                    " ported yet; use ring='exact'"
                 )
             return
         if self.term.touches_rim(grid):
@@ -141,14 +152,16 @@ class CudaEngine(_Engine):
                     " corner lands outside the interior)"
                 )
             return
-        kmax = stencil_sweep.k_max()
+        kmax = stencil_sweep.k_max(R)
         explicit = cfg.t_fuse > 0
         if explicit and cfg.t_fuse > kmax:
-            raise ValueError(f"t_fuse={cfg.t_fuse} exceeds the sweep kernel's depth 1..{kmax}")
+            raise ValueError(
+                f"t_fuse={cfg.t_fuse} exceeds the sweep kernel's depth 1..{kmax} at order {grid.order}"
+            )
         # auto mode degrades K while the correction cubes do not fit the
-        # interior (deeper K spreads each deposit R*(K-1)+1 cells); no K >= 2
-        # leaves the exact ring
-        ks = [cfg.t_fuse] if explicit else range(min(K_AUTO, kmax), 1, -1)
+        # interior (deeper K spreads each deposit R*(K-1)+1 cells), down to
+        # K = 1, which has no cube
+        ks = [cfg.t_fuse] if explicit else range(min(K_AUTO[R], kmax), 0, -1)
         h = grid.halo
         for k in ks:
             cubes = injection_cubes_upto(grid, self.term, self.m_val, cfg.dt, kmax=k)
@@ -160,11 +173,10 @@ class CudaEngine(_Engine):
                     for j in cubes
                 }
                 return
-        if explicit or cfg.ring == "fast":
-            raise ValueError(
-                "the fast ring at this depth needs sources further inside the"
-                f" interior (radius*(K-1)+2 cells; tried K={list(ks)})"
-            )
+        raise ValueError(
+            "the fast ring at this depth needs sources further inside the"
+            f" interior (radius*(K-1)+2 cells; tried K={cfg.t_fuse})"
+        )
 
     def step(self, C, P, T):
         m = self.m if self.m is not None else self.m_val
@@ -241,11 +253,12 @@ class Simulator:
 
     Host-facing arrays (ICs, medium, results) use the reference layout
     [n+2H]^3 (main.cpp:360-363); the engine owns the device state.
-    `device` is required: a CUDA device that is not there raises.
+    `device` defaults to the card; a CUDA device that is not there raises,
+    and device="cpu" runs the plain versions of the kernels.
     """
 
     def __init__(self, grid: Grid3D, cfg: SimConfig, m: np.ndarray,
-                 src_coords: Optional[np.ndarray] = None, *, device):
+                 src_coords: Optional[np.ndarray] = None, *, device="cuda"):
         self.grid = grid
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -327,7 +340,7 @@ class Simulator:
 
 
 def simulate_ring(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
-                  src_coords=None, u_target=None, *, device):
+                  src_coords=None, u_target=None, *, device="cuda"):
     """One-shot run on the exact ring; returns host (u_{N-1}, u_N, u_{N-2})."""
     if cfg.ring == "auto":
         cfg = dataclasses.replace(cfg, ring="exact")
@@ -338,7 +351,7 @@ def simulate_ring(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
 
 
 def simulate(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
-             src_coords=None, *, device):
+             src_coords=None, *, device="cuda"):
     """One-shot run; returns host (u_{N-1}, u_N)."""
     P, C, _ = simulate_ring(u_prev, u_cur, m, grid, cfg, src, src_coords, device=device)
     return P, C
