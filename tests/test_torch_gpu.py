@@ -8,6 +8,9 @@ steps, hence the bound of 1e-5 times the largest increment |want - base|,
 where base is the same steps with the Laplacian left out. The fields are
 random and DT / h = 0.3 (stable at orders 2-12 with m >= 1.5), so that the
 increment is as large as the field and the bound tests the stencil.
+In bf16 storage the kernel and the plain version compute in f32 and round
+once at the end, and may round one element to neighbouring bf16 values:
+the bound adds one bf16 ulp of the element (2^-8 to 2^-7 of its value).
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 import tpufdtd_torch as tt
+from tpufdtd_torch.harness import media
 from tpufdtd_torch.ops import stencil_step as A
 from tpufdtd_torch.ops import stencil_sweep as B
 
@@ -36,11 +40,20 @@ def _mask(grid, dev):
     return mask
 
 
+def _bf16_ulp(t):
+    """One bf16 ulp of each element of the f32 tensor t (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t).exponent - 8)
+
+
 def _close(got, want, base, untouched, mask):
     assert torch.equal(got[..., ~mask], untouched[..., ~mask])
-    scale = float((want - base)[..., mask].abs().max())
+    g, w = got.float(), want.float()
+    scale = float((w - base)[..., mask].abs().max())
     assert scale > 0
-    assert float((got - want).abs().max()) <= RTOL * scale
+    allow = torch.full_like(g, RTOL * scale)
+    if got.dtype == torch.bfloat16:
+        allow += _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    assert bool(((g - w).abs() <= allow).all())
 
 
 @pytest.mark.parametrize("shape,order,per_point", [
@@ -51,9 +64,10 @@ def test_kernel_a_matches_plain(dev, shape, order, per_point):
     gen = torch.Generator(device=dev).manual_seed(0)
     cur, prev, tgt = (torch.randn(g.padded_shape, generator=gen, device=dev) for _ in range(3))
     m = 1.5 + 0.5 * torch.rand(g.padded_shape, generator=gen, device=dev) if per_point else 1.5
-    before = A.counts["kernel"][g.radius]
+    key = (g.radius, "float32", "per-point" if per_point else "scalar")
+    before = A.counts["kernel"][key]
     got = A.leapfrog_step(cur, prev, m, tgt.clone(), grid=g, dt=DT)
-    assert A.counts["kernel"][g.radius] == before + 1
+    assert A.counts["kernel"][key] == before + 1
     want = A.leapfrog_step_ref(cur, prev, m, tgt.clone(), grid=g, dt=DT)
     torch.cuda.synchronize()
     _close(got, want, 2 * cur - prev, tgt, _mask(g, dev))
@@ -68,19 +82,29 @@ def test_kernel_b_matches_plain(dev, k, shape, h):
     _check_b(dev, tt.Grid3D(*shape, hx=h[0], hy=h[1], hz=h[2]), k)
 
 
-def _check_b(dev, g, k):
+def _w(g, dev, gen):
+    """The w stream of a random medium m in [1.5, 2.0]."""
+    m = 1.5 + 0.5 * torch.rand(g.padded_shape, generator=gen, device=dev)
+    return torch.as_tensor(B.w_stream(g, DT, m.cpu().numpy()), device=dev)
+
+
+def _check_b(dev, g, k, dtype=torch.float32, with_w=False):
     gen = torch.Generator(device=dev).manual_seed(k)
     U = torch.randn((2,) + g.padded_shape, generator=gen, device=dev)
     mask = _mask(g, dev)
     U[0][~mask] = U[1][~mask]
+    U = U.to(dtype)
+    w = _w(g, dev, gen) if with_w else None
     out = U.clone()
-    before = B.counts["kernel"][g.radius, k]
-    got = B.sweep_fused(U, out.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k)
-    assert B.counts["kernel"][g.radius, k] == before + 1
-    want = B.sweep_fused_ref(U, grid=g, dt=DT, m_val=1.5, k_fuse=k)
+    key = B.mode_key(g, k, U, w)
+    before = B.counts["kernel"][key]
+    got = B.sweep_fused(U, out.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w)
+    assert B.counts["kernel"][key] == before + 1
+    want = B.sweep_fused_ref(U, grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w)
     torch.cuda.synchronize()
-    d = U[1] - U[0]
-    _close(got, want, torch.stack([U[1] + (k - 1) * d, U[1] + k * d]), out, mask)
+    Uf = U.float()
+    d = Uf[1] - Uf[0]
+    _close(got, want, torch.stack([Uf[1] + (k - 1) * d, Uf[1] + k * d]), out, mask)
 
 
 @pytest.mark.parametrize("radius,k", sorted(rk for rk in B.TILES if rk[0] != 2))
@@ -105,7 +129,7 @@ def test_fast_ring_order8_on_card_matches_truth(dev):
     B.reset_counts()
     state = sim.run(sim.prepare_state(u0, u0), src, 13)
     assert sim.engine.sweep_k == 2 and B.launches("plain") == 0
-    assert B.counts["kernel"] == {(4, 2): 6, (4, 1): 1}
+    assert B.counts["kernel"] == {(4, 2, "float32", "m"): 6, (4, 1, "float32", "m"): 1}
     _, c = sim.extract_state(state)
     _, ct, _ = tt.truth_run_ring(u0, u0, m, g, 0.001, 13, src, coords, device=dev)
     err = np.sqrt(((c - ct) ** 2).sum() / (ct**2).sum())
@@ -126,6 +150,90 @@ def test_fast_ring_on_card_matches_truth(dev):
     _, ct, _ = tt.truth_run_ring(u0, u0, m, g, 0.001, 12, src, coords, device=dev)
     err = np.sqrt(((c - ct) ** 2).sum() / (ct**2).sum())
     assert err < 1e-5
+
+
+MODES = [(torch.float32, True), (torch.bfloat16, False), (torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("dtype,with_w", MODES)
+@pytest.mark.parametrize("radius,k", sorted(rk for rk in B.TILES if rk[0] in B.MODE_RADII))
+@pytest.mark.parametrize("shape,h", [((64, 64, 64), (0.1, 0.1, 0.1)),
+                                     ((17, 13, 11), (0.1, 0.05, 0.2))])
+def test_kernel_b_modes_match_plain(dev, dtype, with_w, radius, k, shape, h):
+    """The w stream and bf16 storage (each with and without the other) at
+    radius 1-3 and every K, isotropic and anisotropic h."""
+    _check_b(dev, tt.Grid3D(*shape, hx=h[0], hy=h[1], hz=h[2], order=2 * radius), k, dtype,
+             with_w)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_kernel_b_w_of_the_scale_is_bitwise_the_scalar_mode(dev, k):
+    """w filled with the scalar mode's own f32 scale: the w path changes
+    nothing else (tests/test_sweep.py:527 on the card)."""
+    g = tt.Grid3D(64, 64, 64)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    U = torch.randn((2,) + g.padded_shape, generator=gen, device=dev)
+    w = torch.full(g.padded_shape, float(A.coeff_values(g, DT, 1.5)[15]), device=dev)
+    a = B.sweep_fused(U, U.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k)
+    b = B.sweep_fused(U, U.clone(), grid=g, dt=DT, m_val=None, k_fuse=k, w=w)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("order", [4, 8, 12])
+@pytest.mark.parametrize("per_point", [False, True])
+def test_kernel_a_bf16_matches_plain(dev, order, per_point):
+    g = tt.Grid3D(33, 17, 40, order=order)
+    gen = torch.Generator(device=dev).manual_seed(order)
+    cur, prev, tgt = (torch.randn(g.padded_shape, generator=gen, device=dev).bfloat16()
+                      for _ in range(3))
+    m = 1.5 + 0.5 * torch.rand(g.padded_shape, generator=gen, device=dev) if per_point else 1.5
+    key = (g.radius, "bfloat16", "per-point" if per_point else "scalar")
+    before = A.counts["kernel"][key]
+    got = A.leapfrog_step(cur, prev, m, tgt.clone(), grid=g, dt=DT)
+    assert A.counts["kernel"][key] == before + 1
+    want = A.leapfrog_step_ref(cur, prev, m, tgt.clone(), grid=g, dt=DT)
+    torch.cuda.synchronize()
+    _close(got, want, 2 * cur.float() - prev.float(), tgt, _mask(g, dev))
+
+
+@pytest.mark.parametrize("order", [4, 6])
+def test_fast_ring_layered_medium_on_card_matches_truth(dev, order):
+    """A heterogeneous medium at orders 4-6 runs kernel B's w mode alone."""
+    g = tt.Grid3D(48, 40, 56, hx=1.0, hy=1.0, hz=1.0, order=order)
+    m = media.layered(g)
+    coords = tt.default_source_coords(1, 48, 40, 56, h=1.0)
+    src = tt.ricker_table(13, 1, 0.3)
+    u0 = np.zeros(g.padded_shape, np.float32)
+    sim = tt.Simulator(g, tt.SimConfig(dt=0.3, nsteps=13), m, coords, device=dev)
+    A.reset_counts()
+    B.reset_counts()
+    state = sim.run(sim.prepare_state(u0, u0), src, 13)
+    assert sim.engine.sweep_k >= 2 and A.launches() == 0 and A.launches("plain") == 0
+    assert B.launches("plain") == 0 and {key[2:] for key in B.counts["kernel"]} == {("float32", "w")}
+    _, c = sim.extract_state(state)
+    _, ct, _ = tt.truth_run_ring(u0, u0, m, g, 0.3, 13, src, coords, device=dev)
+    err = np.sqrt(((c - ct) ** 2).sum() / (ct**2).sum())
+    assert err < 1e-5
+
+
+@pytest.mark.parametrize("order,layered,kernel", [(4, False, "B"), (4, True, "B"), (12, False, "A")])
+def test_bf16_paths_on_card_match_truth(dev, order, layered, kernel):
+    g = tt.Grid3D(48, 40, 56, order=order)
+    m = media.layered(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    coords = tt.default_source_coords(1, 48, 40, 56)
+    src = tt.ricker_table(13, 1, 0.001)
+    u0 = np.zeros(g.padded_shape, np.float32)
+    sim = tt.Simulator(g, tt.SimConfig(nsteps=13, storage_dtype="bfloat16"), m, coords,
+                       device=dev)
+    A.reset_counts()
+    B.reset_counts()
+    state = sim.run(sim.prepare_state(u0, u0), src, 13)
+    assert A.launches("plain") == 0 and B.launches("plain") == 0
+    assert (A.launches() > 0, B.launches() > 0) == (kernel == "A", kernel == "B")
+    c = sim.extract_state(state)[1]
+    _, ct, _ = tt.truth_run_ring(u0, u0, m, g, 0.001, 13, src, coords, device=dev)
+    err = np.sqrt(((c - ct) ** 2).sum() / (ct**2).sum())
+    assert err < 5e-2
 
 
 def test_launch_failure_raises(dev):

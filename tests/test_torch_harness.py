@@ -61,6 +61,54 @@ def test_state_bytes_fits_512_on_80gb():
     for method in ("cuda", "torch"):
         assert state_bytes(Grid3D(512, 512, 512), method) < 0.8 * 80e9
     assert state_bytes(Grid3D(1024, 1024, 1024), "cuda") < 0.8 * 80e9
+    # bf16 levels take half the bytes; a layered medium adds its f32 m and w
+    g = Grid3D(512, 512, 512)
+    vol = int(np.prod(g.padded_shape))
+    assert state_bytes(g, "cuda") - state_bytes(g, "cuda", "bfloat16") == 8 * vol
+    assert state_bytes(g, "cuda", medium="layered") - state_bytes(g, "cuda") == 8 * vol
+    assert state_bytes(Grid3D(1024, 1024, 1024), "cuda", "bfloat16", "layered") < 0.8 * 80e9
+
+
+def test_byte_model_of_the_modes():
+    """12 B/pt per step in f32, 6 in bf16, plus 4 B per f32 field read per
+    step (the w stream once per K-block: 4/K)."""
+    assert metrics.optimized_bytes() == metrics.BYTES_OPTIMIZED == 12.0
+    assert metrics.optimized_bytes("bfloat16") == 6.0
+    assert metrics.optimized_bytes("bfloat16", 1 / 2) == 8.0
+    assert metrics.optimized_bytes("float32", 1.0) == metrics.BYTES_STREAMING_F32
+
+
+@pytest.mark.parametrize("order,layered,storage,reads", [
+    (4, False, "float32", 0.0),  # fast ring, scalar m
+    (4, True, "float32", 0.5),  # fast ring, the w stream once per K = 2 block
+    (4, True, "bfloat16", 0.5),
+    (8, True, "float32", 1.0),  # exact ring, a per-point m every step
+    (12, False, "bfloat16", 0.0),  # exact ring, scalar m
+])
+def test_engine_field_reads_feed_the_byte_model(order, layered, storage, reads):
+    """The medium fields the "cuda" engine reads per step, which the perf
+    harness and chip_smoke.py hand to metrics.optimized_bytes."""
+    import tpufdtd_torch as tt
+    from tpufdtd_torch.harness.media import layered as layered_m
+
+    g = tt.Grid3D(24, 24, 24, order=order)
+    m = layered_m(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    sim = tt.Simulator(g, tt.SimConfig(storage_dtype=storage), m,
+                       tt.default_source_coords(1, 24, 24, 24), device="cpu")
+    assert sim.engine.field_reads_per_step == reads
+
+
+def test_correctness_ladder_in_bf16():
+    """--storage bfloat16 reaches the ladder: both backends store bf16 and
+    are gated at the bf16 tolerance; the f32 gate stays 1e-4."""
+    from tpufdtd_torch.harness import correctness
+
+    reports = run_correctness(sizes=[12], nsteps=6, backends=("torch", "cuda"),
+                              storage_dtype="bfloat16", verbose=False, device="cpu")
+    assert correctness.TOLERANCE == 1e-4 and correctness.BF16_TOLERANCE == 4e-2
+    for r in reports:
+        assert r.passed and r.tolerance == correctness.BF16_TOLERANCE
+        assert correctness.TOLERANCE < r.rel_l2 < correctness.BF16_TOLERANCE
 
 
 def test_perf_and_peaks_refuse_the_cpu():

@@ -126,9 +126,24 @@ def test_wrapper_runs_plain_version_on_cpu():
     res = stencil_step.leapfrog_step(torch.tensor(cur), torch.tensor(prev), torch.tensor(m), out,
                                      grid=g, dt=DT)
     assert res is out
-    assert stencil_step.counts == {"kernel": {}, "plain": {2: 1}}
+    assert stencil_step.counts == {"kernel": {}, "plain": {(2, "float32", "per-point"): 1}}
     assert stencil_step.launches("plain") == 1 and stencil_step.launches() == 0
     np.testing.assert_array_equal(out.numpy(), _ref(cur, prev, m, tgt, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_point", [False, True])
+def test_counts_are_keyed_by_storage_and_kind_of_m(dtype, per_point):
+    """One count per call, under (radius, storage dtype, "scalar" or
+    "per-point" m): a path's launches can be told apart by the kind of m."""
+    g = tt.Grid3D(6, 5, 7, order=6)
+    cur, prev, tgt, m = _fields(g, 6, per_point)
+    stencil_step.reset_counts()
+    stencil_step.leapfrog_step(*(torch.tensor(a).to(dtype) for a in (cur, prev)),
+                               torch.tensor(m) if per_point else m, torch.tensor(tgt).to(dtype),
+                               grid=g, dt=DT)
+    key = (3, stencil_step.STORAGE[dtype], "per-point" if per_point else "scalar")
+    assert stencil_step.counts == {"kernel": {}, "plain": {key: 1}}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strided", "alias", "m_type"])

@@ -136,20 +136,30 @@ def test_wrapper_runs_plain_version_on_cpu():
     out = U.clone()
     sw.reset_counts()
     res = sw.sweep_fused(U, out, grid=g, dt=0.001, m_val=1.5, k_fuse=2)
-    assert res is out and sw.counts == {"kernel": {}, "plain": {(2, 2): 1}}
+    assert res is out and sw.counts == {"kernel": {}, "plain": {(2, 2, "float32", "m"): 1}}
     assert sw.launches("plain") == 1 and sw.launches() == 0
     np.testing.assert_array_equal(
         out.numpy(), sw.sweep_fused_ref(U, grid=g, dt=0.001, m_val=1.5, k_fuse=2).numpy()
     )
 
 
-@pytest.mark.parametrize("bad", ["order", "k0", "kdeep", "alias", "m_field", "dtype"])
+@pytest.mark.parametrize("bad", ["order", "k0", "kdeep", "alias", "m_field", "dtype", "w_order8",
+                                 "bf16_order8", "w_dtype", "w_shape", "mixed_storage"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    g = tt.Grid3D(6, 6, 6, order=10 if bad == "order" else 4)
+    order = {"order": 10, "w_order8": 8, "bf16_order8": 8}.get(bad, 4)
+    g = tt.Grid3D(6, 6, 6, order=order)
     U = torch.zeros((2,) + g.padded_shape)
     out = U.clone()
-    k, m = 2, 1.5
-    if bad == "k0":
+    k, m, w = 2, 1.5, None
+    if bad in ("w_order8", "w_dtype", "w_shape"):
+        w = torch.full(g.padded_shape, 1e-6, dtype=torch.float64 if bad == "w_dtype" else None)
+        if bad == "w_shape":
+            w = w[1:]
+    elif bad == "bf16_order8":
+        U, out = U.bfloat16(), out.bfloat16()
+    elif bad == "mixed_storage":
+        out = out.bfloat16()
+    elif bad == "k0":
         k = 0
     elif bad == "kdeep":
         k = sw.k_max(g.radius) + 1
@@ -160,7 +170,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "dtype":
         out = out.double()
     with pytest.raises((ValueError, TypeError)):
-        sw.sweep_fused(U, out, grid=g, dt=0.001, m_val=m, k_fuse=k)
+        sw.sweep_fused(U, out, grid=g, dt=0.001, m_val=m, k_fuse=k, w=w)
 
 
 def test_tiles_fit_shared_memory():
@@ -179,6 +189,14 @@ def test_tiles_fit_shared_memory():
         assert sw.smem_bytes(r, kmax + 1, (512, 8, 16, 8)) > sw.SMEM_LIMIT or kmax == 4
     assert sw.k_max(2) == 4 and sw.k_max(4) == 3
     assert sw.smem_bytes(2, 5, sw.TILES[2, 4]) > sw.SMEM_LIMIT
+    # the other modes' shapes: radius 1-3, K within k_max, 32 x YT <= 32 x TY threads
+    for (storage, medium), tiles in sw.MODE_TILES.items():
+        assert (storage, medium) in {("float32", "w"), ("bfloat16", "m"), ("bfloat16", "w")}
+        for (r, k), tile in tiles.items():
+            assert r in sw.MODE_RADII and 1 <= k <= sw.k_max(r) and tile[3] <= tile[1]
+            assert sw.smem_bytes(r, k, tile) <= sw.SMEM_LIMIT
+            assert sw.tile_for(r, k, storage, medium) == tile != sw.TILES[r, k]
+    assert sw.tile_for(2, 2) == sw.TILES[2, 2]
     g = tt.Grid3D(6, 6, 6)
     U = torch.zeros((2,) + g.padded_shape)
     with pytest.raises(ValueError, match="shared memory"):

@@ -221,16 +221,13 @@ def test_simulator_defaults_to_the_card():
         tt.simulate(m, m, m, g, tt.SimConfig(nsteps=1))
 
 
-@pytest.mark.parametrize("case", ["bf16", "hetero_fast", "order12_fast", "mixed_rims_fast",
-                                  "hetero_order8_auto"])
+@pytest.mark.parametrize("case", ["order12_fast", "mixed_rims_fast", "hetero_order8_auto"])
 def test_unported_paths_raise(case):
     order = {"order12_fast": 12, "hetero_order8_auto": 8}.get(case, 4)
     g = tt.Grid3D(8, 8, 8, order=order)
     m = np.full(g.padded_shape, 1.5, np.float32)
     kw = {}
-    if case == "bf16":
-        kw = {"storage_dtype": "bfloat16"}
-    elif case in ("hetero_fast", "hetero_order8_auto"):
+    if case == "hetero_order8_auto":
         m[4, 4, 4] = 2.0
     else:
         kw = {"ring": "fast"}
@@ -250,6 +247,67 @@ def test_unported_paths_raise(case):
         return
     with pytest.raises(NotImplementedError):
         tt.Simulator(g, cfg, m, device="cpu")
+
+
+# The routing of the heterogeneous-medium and bf16 paths: case -> (order,
+# heterogeneous m, storage, SimConfig fields, source x or None, identical
+# rims, the fast ring expected (None: both packages raise ValueError)).
+ROUTES = {
+    "hetero_fast": (4, True, "float32", {}, None, True, True),
+    "hetero_order2": (2, True, "float32", {}, None, True, True),
+    "hetero_order6": (6, True, "float32", {}, None, True, True),
+    "hetero_order8": (8, True, "float32", {}, None, True, False),
+    "hetero_t_fuse_2": (4, True, "float32", {"t_fuse": 2}, None, True, False),
+    "hetero_t_fuse_3": (4, True, "float32", {"t_fuse": 3}, None, True, True),
+    "hetero_source_near_boundary": (4, True, "float32", {}, 1.0, True, False),
+    "hetero_mixed_rims": (4, True, "float32", {}, None, False, False),
+    "bf16": (4, False, "bfloat16", {}, None, True, True),
+    "bf16_hetero": (4, True, "bfloat16", {}, 8.0, True, True),
+    "bf16_order6": (6, False, "bfloat16", {}, None, True, True),
+    "bf16_order8": (8, False, "bfloat16", {}, None, True, False),
+    "bf16_order12": (12, False, "bfloat16", {}, None, True, False),
+    "bf16_ring_exact": (4, False, "bfloat16", {"ring": "exact"}, None, True, False),
+    "bf16_t_fuse_2": (4, False, "bfloat16", {"t_fuse": 2}, None, True, False),
+    "bf16_source_near_boundary": (4, False, "bfloat16", {}, 1.0, True, False),
+    "bf16_mixed_rims": (4, False, "bfloat16", {}, None, False, None),
+    "bf16_t_fuse_3_order8": (8, False, "bfloat16", {"t_fuse": 3}, None, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_routing_matches_the_jax_package(case):
+    """Simulator(backend="cuda") picks the ring the JAX package's "pallas"
+    backend picks, and so holds as many levels: the fast ring (kernel B in
+    w, bf16 or bf16 + w mode) or the exact ring (kernel A); both refuse
+    the same configurations."""
+    order, hetero, storage, kw, src_x, same_rims, fast = ROUTES[case]
+    g, gj = _grids(16, 16, 16, hx=1.0, hy=1.0, hz=1.0, order=order)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    if hetero:
+        m[8, 8, 8] = 2.0
+    coords = None if src_x is None else np.array([[src_x, 8.0, 8.0]], np.float32)
+    if same_rims:
+        up, uc = _fast_ic(g, 1)
+    else:
+        up, uc, _ = make_correctness_ic(g)
+    cfg = dict(dt=0.001, storage_dtype=storage, **kw)
+    if fast is None:
+        with pytest.raises(ValueError):
+            sim = tt.Simulator(g, tt.SimConfig(**cfg), m, coords, device="cpu")
+            sim.prepare_state(up, uc)
+        with pytest.raises(ValueError):
+            sim_j = tf.Simulator(gj, tf.SimConfig(backend="pallas", **cfg), m, coords)
+            sim_j.prepare_state(up, uc)
+        return
+    sim = tt.Simulator(g, tt.SimConfig(**cfg), m, coords, device="cpu")
+    sim_j = tf.Simulator(gj, tf.SimConfig(backend="pallas", **cfg), m, coords)
+    levels = sim.extract_state(sim.prepare_state(up, uc))
+    levels_j = sim_j.extract_state(sim_j.prepare_state(up, uc))
+    assert (sim.engine.sweep_k > 0) == (getattr(sim_j.engine, "sweep_k", 0) > 0)
+    assert len(levels) == len(levels_j) == (2 if fast else 3)
+    assert sim.engine.mode == (storage, "w" if hetero else "m")
+    if fast:
+        assert sim.engine.sweep_k >= 2
 
 
 @pytest.mark.parametrize("order", [2, 4, 6, 8, 10, 12])

@@ -1,8 +1,24 @@
 // Shared definitions of the hand-written Hopper kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Storage types of the levels: f32, or bf16 with f32 compute. A bf16 value
+// is widened once where it is loaded and rounded once where it is stored,
+// to nearest even (what Tensor.to(torch.bfloat16) does).
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
 
 // Every f32 scalar a step needs, rounded on the host exactly as the oracle
 // rounds it (tpufdtd_torch/ops/stencil_torch.py:coefficients). Passed by

@@ -6,6 +6,7 @@ Usage:
   python -m tpufdtd_torch.harness.cli                      # full run
   python -m tpufdtd_torch.harness.cli --sizes 32 64 --grids 128 256
   python -m tpufdtd_torch.harness.cli --skip-correctness --backends cuda
+  python -m tpufdtd_torch.harness.cli --storage bfloat16 --medium layered
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--order", type=int, default=4,
                    help="stencil order 2-12, for the correctness ladder and the perf sweep")
+    p.add_argument("--storage", choices=("float32", "bfloat16"), default="float32",
+                   help="storage dtype of the levels (compute is f32); the JAX package's"
+                        " TPUFDTD_STORAGE")
+    p.add_argument("--medium", choices=("uniform", "layered"), default="uniform",
+                   help="m = 1.5, or the layered medium of harness/media.py (perf sweep)")
     p.add_argument("--hbm-frac", type=float, default=0.8,
                    help="fraction of device memory the working-set guard may use")
     p.add_argument("--skip-correctness", action="store_true")
@@ -53,7 +59,7 @@ def main(argv=None):
     if not args.skip_correctness:
         print("\n=== Step 1: Correctness ===")
         reports = run_correctness(args.sizes, args.steps, args.backends, order=args.order,
-                                  device=args.device)
+                                  storage_dtype=args.storage, device=args.device)
         ok = all(r.passed for r in reports)
 
     if not args.skip_perf:
@@ -64,7 +70,8 @@ def main(argv=None):
             run_benchmark(method=backend, grids=args.grids, timesteps=args.steps,
                           nsrc=args.sources, reps=args.reps, csv_path=args.csv,
                           peaks=peaks, hbm_budget_frac=args.hbm_frac,
-                          order=args.order, device=args.device)
+                          order=args.order, storage_dtype=args.storage,
+                          medium=args.medium, device=args.device)
         if args.csv and os.path.exists(args.csv):
             print(f"\n=== Step 3: Results ({args.csv}) ===")
             with open(args.csv) as f:

@@ -9,7 +9,9 @@ Gate: relative L2 < 1e-4 and no NaN/Inf, against the torch-f64 truth
 (oracle.truth_run_ring) run on the same device. The reference's code gates
 max-abs < 1e-4 (main.cpp:603), which holds only between backends built from
 one source with identical FMA contraction; its README documents L2 < 1e-4
-(README.md:33).
+(README.md:33). bf16 storage rounds every stored level to 8 significant
+bits, which no 1e-4 gate can hold: its ladder is gated at BF16_TOLERANCE,
+the JAX package's own bf16 bound (tests/test_sweep.py:234).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..stepper import simulate_ring
 
 DEFAULT_SIZES = (32, 64, 128, 256, 512)
 TOLERANCE = 1e-4
+BF16_TOLERANCE = 4e-2
 
 
 @dataclasses.dataclass
@@ -36,10 +39,15 @@ class ErrorReport:
     rel_l2: float
     nan_count: int
     inf_count: int
+    storage_dtype: str = "float32"
+
+    @property
+    def tolerance(self) -> float:
+        return BF16_TOLERANCE if self.storage_dtype == "bfloat16" else TOLERANCE
 
     @property
     def passed(self) -> bool:
-        return self.rel_l2 < TOLERANCE and self.nan_count == 0 and self.inf_count == 0
+        return self.rel_l2 < self.tolerance and self.nan_count == 0 and self.inf_count == 0
 
 
 def error_scan(test: np.ndarray, ref: np.ndarray):
@@ -71,13 +79,13 @@ def make_ic(grid: Grid3D):
 
 def run_correctness_single(size: int, nsteps: int = 50,
                            backends: Iterable[str] = ("torch", "cuda"),
-                           verbose: bool = True, order: int = 4, *,
-                           device) -> List[ErrorReport]:
+                           verbose: bool = True, order: int = 4,
+                           storage_dtype: str = "float32", *, device) -> List[ErrorReport]:
     grid = Grid3D(size, size, size, hx=1.0, hy=1.0, hz=1.0, order=order)
     up0, uc0, m = make_ic(grid)
     if verbose:
         print(f"\nTest configuration: {size}x{size}x{size} grid, {nsteps} timesteps,"
-              f" order {order}")
+              f" order {order}, {storage_dtype} storage")
         print("Running f64 truth...")
     truth = np.stack(truth_run_ring(up0, uc0, m, grid, 0.001, nsteps, device=device))
 
@@ -85,11 +93,11 @@ def run_correctness_single(size: int, nsteps: int = 50,
     for backend in backends:
         if verbose:
             print(f"Running {backend}...")
-        cfg = SimConfig(dt=0.001, nsteps=nsteps, backend=backend)
+        cfg = SimConfig(dt=0.001, nsteps=nsteps, backend=backend, storage_dtype=storage_dtype)
         ring = simulate_ring(up0, uc0, m, grid, cfg, device=device)
         got = np.stack([np.asarray(x, np.float64) for x in ring])
         max_abs, max_rel, l2, nans, infs = error_scan(got, truth)
-        rep = ErrorReport(backend, size, max_abs, max_rel, l2, nans, infs)
+        rep = ErrorReport(backend, size, max_abs, max_rel, l2, nans, infs, storage_dtype)
         reports.append(rep)
         if verbose:
             print(f"  {backend} vs truth:")
@@ -103,12 +111,13 @@ def run_correctness_single(size: int, nsteps: int = 50,
 
 def run_correctness(sizes: Iterable[int] = DEFAULT_SIZES, nsteps: int = 50,
                     backends: Iterable[str] = ("torch", "cuda"),
-                    verbose: bool = True, order: int = 4, *,
+                    verbose: bool = True, order: int = 4, storage_dtype: str = "float32", *,
                     device) -> List[ErrorReport]:
     """Correctness ladder over the reference's sizes 32^3-512^3 (main.cpp:679)."""
     out: List[ErrorReport] = []
     for s in sizes:
-        out.extend(run_correctness_single(s, nsteps, backends, verbose, order, device=device))
+        out.extend(run_correctness_single(s, nsteps, backends, verbose, order, storage_dtype,
+                                          device=device))
     if verbose:
         ok = all(r.passed for r in out)
         print(f"\nOverall correctness: {'PASS' if ok else 'FAIL'} "

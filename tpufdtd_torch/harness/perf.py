@@ -10,6 +10,11 @@ Times are CUDA-event times of the post-warmup span (Simulator.run_timed);
 this path raises on any device that is not CUDA. Each rep starts from a
 random state made on the device. The section split is measured: the same
 span is timed once more without sources, and section1 = full - that.
+
+storage_dtype "bfloat16" stores the levels in bf16 (f32 compute); medium
+"layered" replaces m = 1.5 by the layered medium of harness/media.py (a
+per-point w stream on kernel B, a per-point m on kernel A). The byte model
+follows both (metrics.optimized_bytes).
 """
 
 from __future__ import annotations
@@ -27,20 +32,25 @@ from ..utils.csvio import append_row
 from ..utils.peaks import DevicePeaks, detect_peaks
 from ..utils.stats import compute_stats
 from ..wavelets import default_source_coords, ricker_table
+from .media import layered
 
 DEFAULT_GRIDS = (32, 64, 96, 128, 192, 256, 384, 512, 640, 768, 896, 1024)
 
 
-def state_bytes(grid: Grid3D, method: str) -> int:
+def state_bytes(grid: Grid3D, method: str, storage_dtype: str = "float32",
+                medium: str = "uniform") -> int:
     """Working-set estimate for the skip check (the reference's guard,
     main.cpp:337-341), over levels of the padded shape (halo = order, so
-    536^3 per level at order 12): the fast ring holds two 2-level buffers
-    (the exact ring of "cuda", three levels, fits the same guard); the
-    eager exact ring holds three levels, m and about six interior-sized
-    temporaries."""
+    536^3 per level at order 12), at 4 B per level element in f32 and 2 B in
+    bf16: the fast ring holds two 2-level buffers (the exact ring of "cuda",
+    three levels, fits the same guard), plus the f32 m and w of a layered
+    medium; the eager exact ring holds three levels, the f32 m and about six
+    f32 interior-sized temporaries."""
     volp = int(np.prod(grid.padded_shape))
-    levels = 4 if method == "cuda" else 10
-    return levels * volp * 4 + (256 << 20)
+    esz = 2 if storage_dtype == "bfloat16" else 4
+    if method == "cuda":
+        return volp * (4 * esz + (8 if medium == "layered" else 0)) + (256 << 20)
+    return volp * (3 * esz + 7 * 4) + (256 << 20)
 
 
 def run_benchmark(
@@ -55,33 +65,40 @@ def run_benchmark(
     hbm_budget_frac: float = 0.8,
     t_fuse: int = 0,
     order: int = 4,
+    storage_dtype: str = "float32",
+    medium: str = "uniform",
     *,
     device="cuda",
 ):
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"the perf phase times CUDA devices only; got {device!r}")
+    if medium not in ("uniform", "layered"):
+        raise ValueError(f"medium must be 'uniform' or 'layered'; got {medium!r}")
     peaks = peaks or detect_peaks(dev)
-    bytes_pt = metrics.BYTES_OPTIMIZED if method == "cuda" else metrics.BYTES_NAIVE
-    ai = metrics.arithmetic_intensity(order, bytes_pt)
     results = []
 
     for gs in grids:
         grid = Grid3D(gs, gs, gs, order=order)
-        need = state_bytes(grid, method)
+        need = state_bytes(grid, method, storage_dtype, medium)
         if need > peaks.hbm_gib * (1 << 30) * hbm_budget_frac:
             if verbose:
                 print(f"Skipping {gs}^3 grid (requires {need / 2**30:.1f} GB)")
             continue
-        m = np.full(grid.padded_shape, 1.5, np.float32)
+        m = layered(grid) if medium == "layered" else np.full(grid.padded_shape, 1.5, np.float32)
         src = ricker_table(timesteps, nsrc, 0.001) if nsrc > 0 else None
         coords = default_source_coords(nsrc, gs, gs, gs) if nsrc > 0 else None
-        cfg = SimConfig(dt=0.001, nsteps=timesteps, backend=method, t_fuse=t_fuse)
+        cfg = SimConfig(dt=0.001, nsteps=timesteps, backend=method, t_fuse=t_fuse,
+                        storage_dtype=storage_dtype)
+        sim = Simulator(grid, cfg, m, coords, device=dev)
+        bytes_pt = metrics.BYTES_NAIVE
+        if method == "cuda":
+            bytes_pt = metrics.optimized_bytes(storage_dtype, sim.engine.field_reads_per_step)
+        ai = metrics.arithmetic_intensity(order, bytes_pt)
         if verbose:
             print(f"Running {method} FDTD (order {grid.order})...\n"
                   f"Grid: {gs}x{gs}x{gs} | Steps: {timesteps} | Sources: {nsrc}"
-                  f" | AI: {ai:.4g} FLOPs/byte")
-        sim = Simulator(grid, cfg, m, coords, device=dev)
+                  f" | AI: {ai:.4g} FLOPs/byte | {storage_dtype}, {medium} m")
 
         def timed(seed, table):
             t0 = time.perf_counter()

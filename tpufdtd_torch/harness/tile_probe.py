@@ -1,16 +1,19 @@
 """Block-shape probe for kernel B (ops/stencil_sweep.TILES).
 
-Times `sweep_fused` at n^3 for each stencil radius R and fusion depth K
-over a grid of block shapes (XC, TY, TZ, YT) that fit shared memory, with
-CUDA events, and prints each shape's ms per call and ms per step, the
-fastest shape per (R, K) and the one TILES holds, then the fastest K >= 2
-per step of each radius (stepper.K_AUTO). Every shape is first checked
-against the shape TILES holds on one small grid, so a shape that computes
-something else fails the probe instead of winning it.
+Times `sweep_fused` at n^3 in one mode (storage dtype, and a scalar m or
+the w stream) for each stencil radius R and fusion depth K over a grid of
+block shapes (XC, TY, TZ, YT) that fit shared memory, with CUDA events,
+and prints each shape's ms per call and ms per step, the fastest shape per
+(R, K) and the one the kernel takes (stencil_sweep.tile_for), then the
+fastest K >= 2 per step of each radius (stepper.K_AUTO).
+Every shape is first checked bitwise against the kernel's own shape on one
+small grid, so a shape that computes something else fails the probe
+instead of winning it.
 
 Usage (on a CUDA card):
-  python -m tpufdtd_torch.harness.tile_probe               # 512^3, every (R, K)
+  python -m tpufdtd_torch.harness.tile_probe               # 512^3, f32, scalar m
   python -m tpufdtd_torch.harness.tile_probe --n 256 --radius 3 --k 2
+  python -m tpufdtd_torch.harness.tile_probe --storage bfloat16 --medium w
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ TZS = (16, 32, 64, 128)
 YTS = (4, 8, 16)
 
 
-def candidates(radius: int, k: int) -> list:
+def candidates(radius: int, k: int, first=None) -> list:
     """Block shapes for (radius, k): 32 x YT threads, YT <= TY, within the
-    shared memory of one block; TILES[radius, k] comes first."""
-    out = [stencil_sweep.TILES[radius, k]]
+    shared memory of one block; `first` (default TILES[radius, k]) comes
+    first."""
+    out = [stencil_sweep.TILES[radius, k] if first is None else first]
     for tile in itertools.product(XCS, TYS, TZS, YTS):
         if tile[3] <= tile[1] and tile not in out:
             if stencil_sweep.smem_bytes(radius, k, tile) <= stencil_sweep.SMEM_LIMIT:
@@ -54,52 +58,63 @@ def _ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _pair(grid: Grid3D, dev, seed: int):
+def _pair(grid: Grid3D, dev, seed: int, dtype, medium: str):
+    """U, a second buffer with its rims, and a w stream (medium "w") of a
+    random m in [1.5, 2.0]."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     U = torch.randn((2,) + grid.padded_shape, generator=gen, device=dev)
     mask = torch.zeros(grid.padded_shape, dtype=torch.bool, device=dev)
     mask[grid.interior_slices()] = True
     U[0][~mask] = U[1][~mask]
-    return U, U.clone()
+    U = U.to(dtype)
+    w = None
+    if medium == "w":
+        m = 1.5 + 0.5 * torch.rand(grid.padded_shape, generator=gen, device=dev)
+        w = torch.as_tensor(stencil_sweep.w_stream(grid, 0.03, m.cpu().numpy()), device=dev)
+    return U, U.clone(), w
 
 
-def probe(n: int, radii, ks, iters: int, device="cuda") -> dict:
-    """{(radius, k): [(tile, ms per call), ...]} at n^3, fastest first,
-    for every (radius, k) of TILES with radius in radii and k in ks."""
+def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
+          medium="m") -> dict:
+    """{(radius, k): [(tile, ms per call), ...]} at n^3 in one mode, fastest
+    first, for every (radius, k) of TILES with radius in radii and k in ks."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"the tile probe times CUDA devices only; got {device!r}")
-    kw = dict(dt=0.03, m_val=1.5)
+    dtype = getattr(torch, storage)
     results = {}
     for R in radii:
         small = Grid3D(300, 40, 72, order=2 * R)
         grid = Grid3D(n, n, n, order=2 * R)
         for k in sorted(k for r, k in stencil_sweep.TILES if r == R and k in ks):
-            Us, outs = _pair(small, dev, k)
-            want = stencil_sweep.sweep_fused(Us, outs.clone(), grid=small, k_fuse=k, **kw)
-            U, out = _pair(grid, dev, 100 + k)
+            held_tile = stencil_sweep.tile_for(R, k, storage, medium)
+            Us, outs, ws = _pair(small, dev, k, dtype, medium)
+            kw = dict(dt=0.03, m_val=1.5, k_fuse=k)
+            want = stencil_sweep.sweep_fused(Us, outs.clone(), grid=small, w=ws, **kw)
+            U, out, w = _pair(grid, dev, 100 + k, dtype, medium)
             rows = []
-            for tile in candidates(R, k):
-                got = stencil_sweep.sweep_fused(Us, outs.clone(), grid=small, k_fuse=k,
-                                                tile=tile, **kw)
+            for tile in candidates(R, k, held_tile):
+                got = stencil_sweep.sweep_fused(Us, outs.clone(), grid=small, w=ws, tile=tile,
+                                                **kw)
                 if not torch.equal(got, want):
-                    raise AssertionError(f"R={R} K={k} tile {tile} disagrees with TILES[{R}, {k}]")
-                ms = _ms(lambda: stencil_sweep.sweep_fused(U, out, grid=grid, k_fuse=k,
-                                                           tile=tile, **kw), iters)
+                    raise AssertionError(f"R={R} K={k} tile {tile} disagrees with {held_tile}")
+                ms = _ms(lambda: stencil_sweep.sweep_fused(U, out, grid=grid, w=w, tile=tile,
+                                                           **kw), iters)
                 rows.append((tile, ms))
-                print(f"R={R} K={k} tile {tile}: {ms:.4f} ms/call, {ms / k:.4f} ms/step",
-                      flush=True)
+                print(f"{storage} {medium} R={R} K={k} tile {tile}: {ms:.4f} ms/call,"
+                      f" {ms / k:.4f} ms/step", flush=True)
             rows.sort(key=lambda r: r[1])
             best = rows[0]
-            held = next(r for r in rows if r[0] == stencil_sweep.TILES[R, k])
-            print(f"R={R} K={k} fastest {best[0]} {best[1]:.4f} ms/call, {best[1] / k:.4f}"
-                  f" ms/step; TILES[{R}, {k}] {held[0]} {held[1]:.4f} ms/call")
+            held = next(r for r in rows if r[0] == held_tile)
+            print(f"{storage} {medium} R={R} K={k} fastest {best[0]} {best[1]:.4f} ms/call,"
+                  f" {best[1] / k:.4f} ms/step; held {held[0]} {held[1]:.4f} ms/call")
             results[R, k] = rows
-            del U, out
+            del U, out, w
         deep = {k: rows[0][1] / k for (r, k), rows in results.items() if r == R and k >= 2}
         if deep:
             k_auto = min(deep, key=deep.get)
-            print(f"R={R} fastest K >= 2 per step: K={k_auto} ({deep[k_auto]:.4f} ms/step)")
+            print(f"{storage} {medium} R={R} fastest K >= 2 per step: K={k_auto}"
+                  f" ({deep[k_auto]:.4f} ms/step)")
     return results
 
 
@@ -110,8 +125,15 @@ def main(argv=None):
     p.add_argument("--k", type=int, nargs="*", default=sorted({k for _, k in stencil_sweep.TILES}))
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--storage", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument("--medium", choices=("m", "w"), default="m",
+                   help="a scalar m, or the w stream of a heterogeneous medium")
     args = p.parse_args(argv)
-    probe(args.n, args.radius, args.k, args.iters, device=args.device)
+    radii = args.radius
+    if (args.storage, args.medium) != ("float32", "m"):
+        radii = [r for r in radii if r in stencil_sweep.MODE_RADII]
+    probe(args.n, radii, args.k, args.iters, device=args.device, storage=args.storage,
+          medium=args.medium)
     return 0
 
 

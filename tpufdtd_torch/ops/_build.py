@@ -27,11 +27,12 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # cur, prev, m (or null), target, nx, ny, nz, halo, radius, coeffs, stream
-    "tpufdtd_leapfrog_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # uin, uout, nx, ny, nz, halo, radius, k, isotropic, xc, ty, tz, ythreads,
+    # cur, prev, m (or null), target, nx, ny, nz, halo, radius, bf16_storage,
     # coeffs, stream
-    "tpufdtd_sweep": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tpufdtd_leapfrog_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # uin, uout, w (or null), nx, ny, nz, halo, radius, k, isotropic,
+    # bf16_storage, xc, ty, tz, ythreads, coeffs, stream
+    "tpufdtd_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _loaded: dict = {}
@@ -121,7 +122,7 @@ def build_log() -> str:
 
 def check(code: int, what: str) -> None:
     if code >= 1000:
-        raise ValueError(f"{what}: radius {code - 1000} is not built into this kernel")
+        raise ValueError(f"{what}: radius {code - 1000} is not built into this mode of the kernel")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 

@@ -5,13 +5,17 @@ tpufdtd/ops/stencil_pallas_z.py:leapfrog_step_zsplit (radius <= 4) and
 tpufdtd/ops/stencil_pallas.py:leapfrog_step_pallas (any order 2-12; the
 ring at orders 10-12). The CUDA source is csrc/stencil_step.cu (one thread
 per interior point, radius 1-6, scalar or per-point m; bound by device
-memory at 12 B per point, 16 B with a per-point m). It writes only the
-target's interior, so each ring level keeps its own rim, as
-leapfrog_step_pallas stores the target's rim back.
+memory at 12 B per point in f32 and 6 B in bf16, plus 4 B for a per-point
+m). It writes only the target's interior, so each ring level keeps its own
+rim, as leapfrog_step_pallas stores the target's rim back.
+
+Storage: cur, prev and target are all f32 or all bf16, as the TPU kernels
+store in the dtype of their inputs; bf16 is widened on load, computed in
+f32 and rounded once on the store. m stays f32.
 
 `leapfrog_step` launches the kernel for CUDA tensors and runs the plain
 version `leapfrog_step_ref` for CPU tensors; `counts` records which ran,
-per radius.
+per (radius, storage dtype, "scalar" or "per-point" m).
 """
 
 from __future__ import annotations
@@ -24,9 +28,15 @@ import torch
 from ..config import Grid3D
 from . import _build, stencil_torch
 
-# launches per radius: counts["kernel"] of the CUDA kernel, counts["plain"]
-# of the plain version
+# launches per (radius, storage dtype name, "scalar" or "per-point" m):
+# counts["kernel"] of the CUDA kernel, counts["plain"] of the plain version
 counts = {"kernel": Counter(), "plain": Counter()}
+STORAGE = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def mode_key(grid: Grid3D, target, m) -> tuple:
+    """The counts key of a call: (radius, storage dtype, m's kind)."""
+    return grid.radius, STORAGE[target.dtype], "per-point" if torch.is_tensor(m) else "scalar"
 
 
 def reset_counts() -> None:
@@ -35,7 +45,7 @@ def reset_counts() -> None:
 
 
 def launches(route: str = "kernel") -> int:
-    """Launches of `route` since the last reset, over every radius."""
+    """Launches of `route` since the last reset, over every mode."""
     return sum(counts[route].values())
 
 
@@ -53,8 +63,9 @@ def coeff_values(grid: Grid3D, dt: float, m_val) -> list:
 
 
 def leapfrog_step_ref(cur, prev, m, target, *, grid: Grid3D, dt: float):
-    """Plain PyTorch version of the kernel: the eager step into target."""
-    counts["plain"][grid.radius] += 1
+    """Plain PyTorch version of the kernel: the eager step into target, in
+    f32, rounded once to target's dtype on the store."""
+    counts["plain"][mode_key(grid, target, m)] += 1
     return stencil_torch.leapfrog_step(cur, prev, m, target, grid=grid, dt=dt)
 
 
@@ -68,8 +79,10 @@ def _check(cur, prev, m, target, grid: Grid3D):
     for name, t in tensors.items():
         if not torch.is_tensor(t):
             raise TypeError(f"{name} must be a tensor; got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32; got {t.dtype}")
+        want = torch.float32 if name == "m" else cur.dtype
+        if t.dtype != want or t.dtype not in STORAGE:
+            raise ValueError(f"{name} must be {want} (levels float32 or bfloat16, all alike;"
+                             f" m float32); got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have the padded shape {shape}; got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -86,8 +99,9 @@ def _check(cur, prev, m, target, grid: Grid3D):
 def leapfrog_step(cur, prev, m, target, *, grid: Grid3D, dt: float):
     """u_next into target's interior (in place); returns target.
 
-    m is a full padded f32 tensor or a scalar. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, and a failed launch raises.
+    cur, prev and target are f32 or bf16, all alike; m is a full padded f32
+    tensor or a scalar. CPU tensors take the plain version; CUDA tensors
+    launch the kernel, and a failed launch raises.
     """
     _check(cur, prev, m, target, grid)
     if cur.device.type == "cpu":
@@ -102,8 +116,9 @@ def leapfrog_step(cur, prev, m, target, *, grid: Grid3D, dt: float):
             cur.data_ptr(), prev.data_ptr(),
             m.data_ptr() if m_val is None else None,
             target.data_ptr(), grid.nx, grid.ny, grid.nz, grid.halo,
-            grid.radius, coeffs, torch.cuda.current_stream().cuda_stream,
+            grid.radius, int(cur.dtype == torch.bfloat16), coeffs,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "leapfrog_step")
-    counts["kernel"][grid.radius] += 1
+    counts["kernel"][mode_key(grid, target, m)] += 1
     return target

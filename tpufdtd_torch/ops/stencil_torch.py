@@ -31,7 +31,7 @@ def coefficients(grid: Grid3D, dt: float) -> dict:
     }
 
 
-def _f32(x) -> torch.Tensor:
+def scalar_f32(x) -> torch.Tensor:
     """A 0-d f32 CPU tensor: an f32 scalar on any device, so that products
     with f32 tensors round in f32."""
     return torch.tensor(float(x), dtype=torch.float32)
@@ -56,15 +56,15 @@ def leapfrog_step(
     lay = Layout.reference(grid)
     c = coefficients(grid, dt)
     # 0-d CPU tensors act as f32 scalars on any device, with no copy
-    W = [_f32(w) for w in c["W"]]
-    dt2, r1, neg2r1 = (_f32(c[k]) for k in ("dt2", "r1", "neg2r1"))
-    rax = [_f32(r) for r in c["rax"]]
+    W = [scalar_f32(w) for w in c["W"]]
+    dt2, r1, neg2r1 = (scalar_f32(c[k]) for k in ("dt2", "r1", "neg2r1"))
+    rax = [scalar_f32(r) for r in c["rax"]]
 
     interior = lay.interior_slices()
     u0 = u_cur.float()
     u0c = u0[interior]
     u1c = u_prev[interior].float()
-    mc = m[interior].float() if torch.is_tensor(m) else _f32(m)
+    mc = m[interior].float() if torch.is_tensor(m) else scalar_f32(m)
 
     r5 = W[0] * u0c
     lap = None

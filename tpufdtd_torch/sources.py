@@ -143,8 +143,15 @@ def inject(u: torch.Tensor, term: DeviceSourceTerm, src_t: torch.Tensor) -> torc
 
 
 def injection_cubes_upto(grid: Grid3D, term: SourceTerm, m_val: float, dt: float,
-                         kmax: int):
+                         kmax: int, m_core=None):
     """Correction cubes C_j (j = 2..kmax) for K-step temporal fusion.
+
+    m_core: a heterogeneous medium, in the reference layout of term's
+    indices (tpufdtd/sources.py:224-233). Each source's scratch grid then
+    takes the m of its floor cell, overlaid with the window of the real
+    medium around its deposit (clipped at the array's edge): a deposit
+    spreads R*(j-1) cells in j-1 steps, so only that window's m reaches C_j.
+    m_val is ignored when m_core is given.
 
     Injection is linear, so a unit deposit made into u_{n+1} propagates
     through the homogeneous leapfrog as e_1 = w, e_j = A e_{j-1} - e_{j-2}
@@ -173,7 +180,7 @@ def injection_cubes_upto(grid: Grid3D, term: SourceTerm, m_val: float, dt: float
                   order=grid.order)
     h = mini.halo
     ctr = h + n_mini // 2 - 1  # a center cell with room
-    mfield = np.full(mini.padded_shape, np.float32(m_val), np.float32)
+    mfield = np.full(mini.padded_shape, np.float32(1.0 if m_val is None else m_val), np.float32)
     for p in range(term.nsrc):
         sel = term.src_idx == p
         ix, iy, iz = term.ix[sel], term.iy[sel], term.iz[sel]
@@ -181,6 +188,15 @@ def injection_cubes_upto(grid: Grid3D, term: SourceTerm, m_val: float, dt: float
         if sc.size == 0 or not np.any(sc != 0):
             continue
         fx, fy, fz = int(ix.min()), int(iy.min()), int(iz.min())
+        if m_core is not None:
+            # window radius: the kmax-1-step spread plus the stencil's reach
+            wr = R * (kmax - 1) + R
+            di = np.arange(-wr, wr + 2)
+            cx, cy, cz = (np.clip(f + di, 0, n - 1) for f, n in zip((fx, fy, fz), m_core.shape))
+            mfield[:] = np.float32(m_core[fx, fy, fz])
+            mfield[np.ix_(ctr + di, ctr + di, ctr + di)] = np.asarray(
+                m_core, np.float32
+            )[np.ix_(cx, cy, cz)]
         w = np.zeros(mini.padded_shape, np.float32)
         for k in range(ix.shape[0]):
             w[ctr + ix[k] - fx, ctr + iy[k] - fy, ctr + iz[k] - fz] += sc[k]

@@ -10,13 +10,25 @@ Rings:
     reference's %3 ring, per-level frozen rims included.
   * fast: two levels U = [u_{n-1}, u_n], advanced K steps per kernel-B
     call, sources added exactly after each block by superposition
-    (sources.injection_cubes_upto). Legal at orders 2-8 with a uniform m
-    when all levels share identical rims and no source deposits in a rim
-    (any face: the JAX package checks only the z rim); kernel B writes
-    into a second buffer, so the state holds U and a spare with the same
-    rims. K is K_AUTO[radius], degraded while the correction cubes do not
-    fit the interior, down to K = 1, which needs no cube (the role of the
-    JAX package's packed_step).
+    (sources.injection_cubes_upto). Legal when all levels share identical
+    rims and no source deposits in a rim (any face: the JAX package checks
+    only the z rim); kernel B writes into a second buffer, so the state
+    holds U and a spare with the same rims.
+
+Routing of the "cuda" backend (the JAX package's "pallas" choices):
+  * f32, uniform m, orders 2-8: the fast ring. K is K_AUTO[radius],
+    degraded while the correction cubes do not fit the interior, down to
+    K = 1, which needs no cube (the role of the JAX package's packed_step).
+  * a heterogeneous m (w mode) or bf16 storage at orders 2-6, t_fuse 0 or
+    >= 3: the fast ring on kernel B in that mode. K is K_AUTO[radius], the
+    cubes are propagated through the local medium, and K degrades down to
+    2 only: the JAX package's sweep runs these modes at K >= 2 and has no
+    K = 1 form of them, so below that it takes the exact ring, as here.
+  * otherwise the exact ring on kernel A (per-point m at order 8 with a
+    heterogeneous medium; bf16 at orders 8-12, or where the fast ring is
+    not legal, as the JAX package's JnpEngine).
+bf16 levels are stored in bf16 and computed in f32; host-facing arrays stay
+f32 both ways.
 
 Engines:
   * TorchEngine ("torch"): the exact ring on the plain eager step.
@@ -43,9 +55,9 @@ from .sources import (
     injection_cubes_upto,
 )
 
-# Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0: the
-# fastest K >= 2 per step at 512^3 on an H100 (harness/tile_probe.py;
-# PERF.md).
+# Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0, in
+# every mode of kernel B: the fastest K >= 2 per step at 512^3 on an H100
+# (harness/tile_probe.py; PERF.md).
 K_AUTO = {1: 2, 2: 2, 3: 2, 4: 2}
 
 
@@ -73,11 +85,8 @@ class _Engine:
     """The exact 3-level ring; subclasses supply `step`."""
 
     def __init__(self, grid: Grid3D, cfg: SimConfig, m_ref, coords, device):
-        if cfg.storage_dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 storage is not ported yet; use storage_dtype='float32'"
-            )
         self.grid, self.cfg, self.device = grid, cfg, device
+        self.dtype = getattr(torch, cfg.storage_dtype)
         self.m_ref = np.asarray(m_ref, np.float32)
         self.term = build_source_term(grid, coords, self.m_ref)
         self.dterm = DeviceSourceTerm.of(self.term, device)
@@ -86,14 +95,19 @@ class _Engine:
     def has_sources(self) -> bool:
         return not self.term.empty
 
+    def field(self, a) -> torch.Tensor:
+        """An f32 host array on the device (the medium, w)."""
+        return torch.tensor(np.asarray(a, np.float32), device=self.device)
+
     def level(self, u_ref) -> torch.Tensor:
-        return torch.tensor(np.asarray(u_ref, np.float32), device=self.device)
+        """A host level on the device in the storage dtype."""
+        return torch.tensor(np.asarray(u_ref, np.float32)).to(self.dtype).to(self.device)
 
     def prepare_state(self, u_prev, u_cur, u_target):
         return (self.level(u_prev), self.level(u_cur), self.level(u_target))
 
     def extract_state(self, state):
-        return tuple(x.cpu().numpy() for x in state)
+        return tuple(x.float().cpu().numpy() for x in state)
 
     def run_scan(self, state, src_table, nsteps: int):
         return run_scan(state, src_table, engine=self, nsteps=nsteps)
@@ -104,7 +118,7 @@ class TorchEngine(_Engine):
 
     def __init__(self, grid, cfg, m_ref, coords, device):
         super().__init__(grid, cfg, m_ref, coords, device)
-        self.m = self.level(self.m_ref)
+        self.m = self.field(self.m_ref)
 
     def step(self, C, P, T):
         return stencil_torch.leapfrog_step(C, P, self.m, T, grid=self.grid, dt=self.cfg.dt)
@@ -120,33 +134,53 @@ class CudaEngine(_Engine):
         if uniform is None:
             uniform = bool(np.all(self.m_ref == self.m_ref.flat[0]))
         self.m_val = float(self.m_ref.flat[0]) if uniform else None
-        self.m = None if uniform else self.level(self.m_ref)
+        self.m = None if uniform else self.field(self.m_ref)
+        self.w = None  # kernel B's per-point w stream, when the fast ring has one
         self.sweep_k = 0
         self.cubes = {}
         if cfg.ring != "exact":
             self._init_sweep()
+        if not self.sweep_k and cfg.t_fuse >= 3 and self.mode != ("float32", "m"):
+            raise ValueError(
+                f"t_fuse={cfg.t_fuse} in this mode ({self.mode[0]} storage, medium"
+                f" {self.mode[1]!r}) needs the fused sweep: order <= 6, ring 'auto' or"
+                " 'fast', and sources inside the interior"
+            )
+
+    @property
+    def mode(self) -> Tuple[str, str]:
+        """Kernel B's mode on the fast ring: (storage dtype, "m" or "w")."""
+        return self.cfg.storage_dtype, "m" if self.m_val is not None else "w"
 
     def _init_sweep(self):
         grid, cfg = self.grid, self.cfg
         R = grid.radius
+        plain_mode = self.mode == ("float32", "m")
         if not stencil_sweep.supported(grid):
-            if cfg.ring == "fast":
+            if cfg.ring == "fast" and self.dtype == torch.float32:
                 raise NotImplementedError(
                     f"the fast ring runs orders 2-8; order {grid.order} needs"
                     " ring='exact'"
                 )
             return
-        if self.m_val is None:
-            # the JAX package streams a per-point w through its sweep at
-            # radius <= 3 and takes the exact ring at radius 4
-            if R <= 3 or cfg.ring == "fast":
-                raise NotImplementedError(
-                    "a heterogeneous medium on the fused sweep kernel is not"
-                    " ported yet; use ring='exact'"
-                )
-            return
+        if not plain_mode:
+            if R not in stencil_sweep.MODE_RADII:
+                # as in the JAX package: radius 4 with a heterogeneous m or
+                # bf16 storage takes the exact ring
+                if cfg.ring == "fast" and self.dtype == torch.float32:
+                    raise NotImplementedError(
+                        "the fast ring with a heterogeneous medium runs orders 2-6;"
+                        f" order {grid.order} needs ring='exact'"
+                    )
+                return
+            if cfg.t_fuse in (1, 2):
+                # the JAX package runs its w and bf16 sweeps at t_fuse 0 or
+                # >= 3 only (tpufdtd/stepper.py:172), else the exact ring
+                return
         if self.term.touches_rim(grid):
-            if cfg.ring == "fast" or cfg.t_fuse:
+            # bf16 then takes the exact ring, as the JAX package's JnpEngine
+            # does whatever the ring asked for
+            if cfg.t_fuse or (cfg.ring == "fast" and self.dtype == torch.float32):
                 raise ValueError(
                     "the fast ring needs sources clear of the rims (a trilinear"
                     " corner lands outside the interior)"
@@ -160,11 +194,13 @@ class CudaEngine(_Engine):
             )
         # auto mode degrades K while the correction cubes do not fit the
         # interior (deeper K spreads each deposit R*(K-1)+1 cells), down to
-        # K = 1, which has no cube
-        ks = [cfg.t_fuse] if explicit else range(min(K_AUTO[R], kmax), 0, -1)
+        # K = 1, which has no cube; the w and bf16 modes stop at K = 2
+        ks = [cfg.t_fuse] if explicit else range(min(K_AUTO[R], kmax), 0 if plain_mode else 1, -1)
         h = grid.halo
+        m_core = None if self.m_val is not None else self.m_ref
         for k in ks:
-            cubes = injection_cubes_upto(grid, self.term, self.m_val, cfg.dt, kmax=k)
+            cubes = injection_cubes_upto(grid, self.term, self.m_val, cfg.dt, kmax=k,
+                                         m_core=m_core)
             flat = [c for j in cubes for c in cubes[j]]
             if cubes_fit_core(flat, grid.padded_shape, h, h, grid.nz, z0=h):
                 self.sweep_k = k
@@ -172,11 +208,23 @@ class CudaEngine(_Engine):
                     j: [(sl, torch.as_tensor(cb, device=self.device), p) for sl, cb, p in cubes[j]]
                     for j in cubes
                 }
+                if m_core is not None:
+                    self.w = self.field(stencil_sweep.w_stream(grid, cfg.dt, self.m_ref))
                 return
-        raise ValueError(
-            "the fast ring at this depth needs sources further inside the"
-            f" interior (radius*(K-1)+2 cells; tried K={cfg.t_fuse})"
-        )
+        if explicit or (cfg.ring == "fast" and self.dtype == torch.float32):
+            raise ValueError(
+                "the fast ring at this depth needs sources further inside the"
+                f" interior (radius*(K-1)+2 cells; tried K={list(ks)})"
+            )
+
+    @property
+    def field_reads_per_step(self) -> float:
+        """f32 medium fields the kernels read per step, for the byte model
+        (utils/metrics.optimized_bytes): the w stream once per K-block call
+        on the fast ring, a per-point m every step on the exact ring."""
+        if self.sweep_k:
+            return 0.0 if self.w is None else 1.0 / self.sweep_k
+        return float(self.m is not None)
 
     def step(self, C, P, T):
         m = self.m if self.m is not None else self.m_val
@@ -186,6 +234,12 @@ class CudaEngine(_Engine):
         if self.sweep_k and _rims_identical([u_prev, u_cur, u_target], self.grid.halo):
             U = torch.stack([self.level(u_prev), self.level(u_cur)])
             return {"sweep": (U, U.clone())}
+        if self.sweep_k and self.dtype == torch.bfloat16:
+            raise ValueError(
+                "bfloat16 storage on the fast ring needs identical rims across all"
+                " ring levels (standard ICs satisfy this); use ring='exact' or"
+                " backend='torch' for bf16 with differing rims"
+            )
         if self.cfg.ring == "fast":
             raise ValueError("ring='fast' requires identical rims across all ring levels")
         return super().prepare_state(u_prev, u_cur, u_target)
@@ -193,7 +247,7 @@ class CudaEngine(_Engine):
     def extract_state(self, state):
         if isinstance(state, dict):
             U, _spare = state["sweep"]
-            return (U[0].cpu().numpy(), U[1].cpu().numpy())
+            return (U[0].float().cpu().numpy(), U[1].float().cpu().numpy())
         return super().extract_state(state)
 
     def _correct(self, U, s, kk: int):
@@ -205,9 +259,9 @@ class CudaEngine(_Engine):
         inject(U[1], self.dterm, s[kk - 1])
         for j in range(2, kk + 1):
             for sl, cube, p in self.cubes[j]:
-                U[(1,) + sl] += s[kk - j, p] * cube
+                U[(1,) + sl] += (s[kk - j, p] * cube).to(U.dtype)
                 if kk - 1 - j >= 0:
-                    U[(0,) + sl] += s[kk - 1 - j, p] * cube
+                    U[(0,) + sl] += (s[kk - 1 - j, p] * cube).to(U.dtype)
 
     def run_scan(self, state, src_table, nsteps: int):
         if not isinstance(state, dict):
@@ -218,7 +272,8 @@ class CudaEngine(_Engine):
         while done < nsteps:
             kk = min(self.sweep_k, nsteps - done)
             stencil_sweep.sweep_fused(
-                U, spare, grid=self.grid, dt=self.cfg.dt, m_val=self.m_val, k_fuse=kk
+                U, spare, grid=self.grid, dt=self.cfg.dt, m_val=self.m_val, k_fuse=kk,
+                w=self.w,
             )
             U, spare = spare, U
             if have_src:
@@ -277,7 +332,8 @@ class Simulator:
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def rnd(*shape):
-            return torch.randn(shape, generator=gen, device=self.device) * scale
+            u = torch.randn(shape, generator=gen, device=self.device) * scale
+            return u.to(self.engine.dtype)
 
         shape = self.grid.padded_shape
         if getattr(self.engine, "sweep_k", 0):
