@@ -6,7 +6,9 @@
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
   1. card: name, power limit, torch / CUDA / nvcc versions;
-  2. build: both kernels from tpufdtd_torch/csrc, with nvcc's -Xptxas -v lines;
+  2. build: both kernels from tpufdtd_torch/csrc, each source's nvcc time,
+     and each kernel's registers and spills from -Xptxas -v (fails on any
+     spill);
   3. kernel A (single step) against its plain version, rims bitwise;
   3b. kernel A at order 12 (leapfrog_step_pallas's role) at 512^3, scalar
      and per-point m, checked then timed;
@@ -20,8 +22,9 @@ exits non-zero without a result line:
      ms/step, Gcell/s and % of HBM peak; the same run on the plain
      "torch" backend;
   7. high-order paths: the run of phase 6 at orders 6, 8 and 12 (kernel B
-     at radius 3, kernel B at radius 4 with K = 2 and K = 1, kernel A at
-     radius 6), each with its launches, levels, rel-L2 and times;
+     at radius 3 and 4 at K_AUTO = 1, kernel A at radius 6), and at order 8
+     with t_fuse = 2 (kernel B at radius 4, K = 2: packed_fused2's role),
+     each with its launches, levels, rel-L2 and times;
   8. kernel modes against their plain versions: kernel B with the w stream,
      in bf16 and in bf16 with w at radius 1-3 and every K (the w stream
      filled with the scalar mode's scale bitwise equal to the scalar mode
@@ -42,6 +45,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -77,6 +81,33 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """(kernel, registers, stack bytes, spill stores, spill loads) of every
+    kernel in nvcc's -Xptxas -v output; kernel B's instantiations are named
+    by their template arguments."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            b = re.search(r"kernelILi(\d)ELi(\d)ELb(\d)E(f|13__nv_bfloat16)Lb(\d)E", cur)
+            a = re.search(r"leapfrog_step_kernelILi(\d+)E(f|13__nv_bfloat16)", cur)
+            if b:
+                cur = (f"B R={b[1]} K={b[2]} {'iso' if b[3] == '1' else 'exact'}"
+                       f" {'f32' if b[4] == 'f' else 'bf16'} {'w' if b[5] == '1' else 'm'}")
+            elif a:
+                cur = f"A R={a[1]} {'f32' if a[2] == 'f' else 'bf16'}"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill"
+                      r" loads", line)
+        if m and cur:
+            out.append([cur, None, *map(int, m.groups())])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1][0] == cur and out[-1][1] is None:
+            out[-1][1] = int(m.group(1))
+    return [tuple(k) for k in out]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -472,14 +503,14 @@ def phase_gate(tt, dev):
     return a
 
 
-def run_main(tt, dev, backend, order=4, medium=None, storage="float32"):
+def run_main(tt, dev, backend, order=4, medium=None, storage="float32", t_fuse=0):
     """The bench's 512^3 x 50 run (h = 0.1, dt = 1e-3, one Ricker source,
     zero ICs, ring "auto"), timed; medium is m's array (default uniform
-    1.5)."""
+    1.5); t_fuse > 0 asks for that fusion depth."""
     n, nsteps = MAIN_N, 50
     grid = tt.Grid3D(n, n, n, order=order)
     cfg = tt.SimConfig(dt=0.001, nsteps=nsteps, warmup_steps=5, backend=backend,
-                       storage_dtype=storage)
+                       storage_dtype=storage, t_fuse=t_fuse)
     m = np.full(grid.padded_shape, 1.5, np.float32) if medium is None else medium
     src = tt.ricker_table(nsteps, 1, cfg.dt)
     coords = tt.default_source_coords(1, n, n, n)
@@ -562,25 +593,31 @@ def report_times(tt, dev, smi, sim, secs, src, plain=True, label=""):
 
 
 # per order of phase 7: the only launches allowed, and those that must occur
+# (orders 6 and 8 at K_AUTO = 1, the fastest per step)
 HIGH_ORDER_LAUNCHES = {6: ([r"B R=3 K=\d float32 m"], [r"B R=3 K=\d float32 m"]),
-                       8: ([r"B R=4 K=[12] float32 m"], [r"B R=4 K=2 float32 m",
-                                                         r"B R=4 K=1 float32 m"]),
+                       8: ([r"B R=4 K=[12] float32 m"], [r"B R=4 K=\d float32 m"]),
                        12: ([r"A R=6 float32 scalar"], [r"A R=6 float32 scalar"])}
+# phase 7's order-8 run at t_fuse = 2, packed_fused2's role: K = 2 blocks
+# and, after each odd span, one K = 1 block
+FUSED2_LAUNCHES = ([r"B R=4 K=[12] float32 m"], [r"B R=4 K=2 float32 m", r"B R=4 K=1 float32 m"])
 
 
 def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="float32",
-               tol=GATE_TOL, plain=True, f32_twin=False):
+               tol=GATE_TOL, plain=True, f32_twin=False, t_fuse=0):
     """Phase 6's run at another order, medium (the layered medium when
-    `layered`) or storage dtype: launches, levels, rel-L2 against the f64
-    truth (< tol) and times; with `f32_twin`, also the rel-L2 against the
-    f32 run of the same path. Returns (launches per mode, cuda ms/step)."""
+    `layered`), storage dtype or fusion depth (t_fuse > 0): launches,
+    levels, rel-L2 against the f64 truth (< tol) and times; with
+    `f32_twin`, also the rel-L2 against the f32 run of the same path.
+    Returns (launches per mode, cuda ms/step)."""
     from tpufdtd_torch.harness import media
 
     n, nsteps = MAIN_N, 50
     medium = media.layered(tt.Grid3D(n, n, n, order=order)) if layered else None
-    label = (" layered" if layered else "") + (" bf16" if storage == "bfloat16" else "")
+    label = ((" layered" if layered else "") + (" bf16" if storage == "bfloat16" else "")
+             + (f" t_fuse {t_fuse}" if t_fuse else ""))
     reset_counts()
-    sim, state, secs, (u0, m, src, coords) = run_main(tt, dev, "cuda", order, medium, storage)
+    sim, state, secs, (u0, m, src, coords) = run_main(tt, dev, "cuda", order, medium, storage,
+                                                      t_fuse)
     modes = launches_by_mode()
     ring = f"fast, K={sim.engine.sweep_k}" if sim.engine.sweep_k else "exact"
     print(f"  order {order}{label}: ring {ring}, launches {modes}")
@@ -662,7 +699,7 @@ BF16_PATHS = {"order 4": (4, False, [r"B R=2 K=\d bfloat16 m"]),
 def run_phases(tt, dev, smi):
     """Phases 3-10; returns the kernels line's entries."""
     from tpufdtd_torch.ops.stencil_sweep import MODE_RADII
-    from tpufdtd_torch.stepper import K_AUTO
+    from tpufdtd_torch.stepper import K_AUTO, MODE_K  # MODE_K: the w and bf16 modes' K
 
     print("[3 kernel A vs plain]")
     a4 = phase_kernel_a(tt, dev)
@@ -680,12 +717,14 @@ def run_phases(tt, dev, smi):
     launches_b = phase_main(tt, dev, smi)
     print(f"[7 high-order paths {MAIN_N}^3 x 50]")
     paths = {order: phase_high_order(tt, dev, smi, order) for order in HIGH_ORDERS}
+    paths["order 8 t_fuse 2"] = phase_path(tt, dev, smi, 8, *FUSED2_LAUNCHES, plain=False,
+                                           t_fuse=2)[0]
 
     print("[8 kernel modes vs plain: B with w, in bf16 and in bf16 with w; A in bf16]")
     bm = {}
     for storage, medium in NEW_MODES:
         for radius in MODE_RADII:
-            bm[storage, medium, radius] = phase_kernel_b(tt, dev, radius, [K_AUTO[radius]],
+            bm[storage, medium, radius] = phase_kernel_b(tt, dev, radius, [MODE_K],
                                                          storage, medium)
     a_bf16 = phase_kernel_a_bf16(tt, dev)
     print("[9 heterogeneous paths: the layered medium]")
@@ -717,7 +756,7 @@ def run_phases(tt, dev, smi):
 
     def b_new(storage, medium, radius):
         res = bm[storage, medium, radius]
-        return {**res[K_AUTO[radius]], "max_abs_err": res["max_abs_err"], "library_ms": None,
+        return {**res[MODE_K], "max_abs_err": res["max_abs_err"], "library_ms": None,
                 "launches": total(rf"B R={radius} K=\d {storage} {medium}")}
 
     def a_new(radius, storage, mkind, res):
@@ -733,7 +772,7 @@ def run_phases(tt, dev, smi):
         "launches": total(rf"B R={r} K=\d float32 m")} for r in (1, 3)}
     for (storage, medium), tag in mode_names.items():
         for r in MODE_RADII:
-            sweep_modes[f"{tag} R={r},K={K_AUTO[r]}"] = b_new(storage, medium, r)
+            sweep_modes[f"{tag} R={r},K={MODE_K}"] = b_new(storage, medium, r)
     a_mode = {f"R={r}, {s}, {mk} m, {MAIN_N}^3": a_new(r, s, mk, v)
               for (r, s, mk), v in a_bf16.items()}
     kernels = [
@@ -753,10 +792,12 @@ def run_phases(tt, dev, smi):
          "modes": sweep_modes},
         {"name": "packed_step", "route": "cuda", "source": sweep,
          "replaces": "tpufdtd/ops/stencil_pallas_z.py:405", "mode": "R=4,K=1",
-         "launches": paths[8]["B R=4 K=1 float32 m"], **b_mode(4, 1)},
+         "launches": total(r"B R=4 K=1 float32 m"),
+         "path_launches": launched(r"B R=4 K=1 float32 m"), **b_mode(4, 1)},
         {"name": "packed_fused2", "route": "cuda", "source": sweep,
          "replaces": "tpufdtd/ops/stencil_pallas_z.py:542", "mode": "R=4,K=2",
-         "launches": paths[8]["B R=4 K=2 float32 m"], **b_mode(4, 2)},
+         "launches": total(r"B R=4 K=2 float32 m"),
+         "path_launches": launched(r"B R=4 K=2 float32 m"), **b_mode(4, 2)},
         {"name": "leapfrog_step_pallas", "route": "cuda", "source": step,
          "replaces": "tpufdtd/ops/stencil_pallas.py:185", "mode": "R=6, scalar m",
          "launches": total(r"A R=6 .* scalar"),
@@ -787,11 +828,20 @@ def main() -> int:
     print(f"[1 card] {torch.cuda.get_device_name(0)} | {smi} | python {sys.version.split()[0]}"
           f" | torch {torch.__version__} | torch CUDA {torch.version.cuda} | nvcc {nvcc}")
 
+    t0 = time.perf_counter()
     _build.library()
-    print("[2 build] kernels built from tpufdtd_torch/csrc:")
-    for line in _build.build_log().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    print(f"[2 build] kernels built from tpufdtd_torch/csrc in {time.perf_counter() - t0:.1f} s"
+          " (one nvcc per source, in parallel); ptxas per kernel:")
+    log = _build.build_log()
+    for line in log.splitlines():
+        if line.startswith("nvcc "):
+            print("  " + line)
+    kernels = ptxas_summary(log)
+    for name, regs, stack, spill_st, spill_ld in kernels:
+        print(f"  {name}: {regs} registers, stack {stack} B, spills {spill_st}/{spill_ld} B")
+    spilled = [k[0] for k in kernels if k[3] or k[4]]
+    if not kernels or spilled:
+        raise AssertionError(f"ptxas: {len(kernels)} kernels, spills in {spilled}")
 
     print(json.dumps({"kernels": run_phases(tt, dev, smi)}))
     print(smi_line())

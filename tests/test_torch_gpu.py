@@ -88,7 +88,7 @@ def _w(g, dev, gen):
     return torch.as_tensor(B.w_stream(g, DT, m.cpu().numpy()), device=dev)
 
 
-def _check_b(dev, g, k, dtype=torch.float32, with_w=False):
+def _check_b(dev, g, k, dtype=torch.float32, with_w=False, tile=None):
     gen = torch.Generator(device=dev).manual_seed(k)
     U = torch.randn((2,) + g.padded_shape, generator=gen, device=dev)
     mask = _mask(g, dev)
@@ -98,7 +98,7 @@ def _check_b(dev, g, k, dtype=torch.float32, with_w=False):
     out = U.clone()
     key = B.mode_key(g, k, U, w)
     before = B.counts["kernel"][key]
-    got = B.sweep_fused(U, out.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w)
+    got = B.sweep_fused(U, out.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w, tile=tile)
     assert B.counts["kernel"][key] == before + 1
     want = B.sweep_fused_ref(U, grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w)
     torch.cuda.synchronize()
@@ -118,8 +118,9 @@ def test_kernel_b_matches_plain_radius_1_3_4(dev, radius, k, shape, h):
 
 
 def test_fast_ring_order8_on_card_matches_truth(dev):
-    """Order 8 on the fast ring: 13 steps are K_AUTO[4] = 2 blocks and one
-    K = 1 block, both on kernel B, none on a plain version."""
+    """Order 8 on the fast ring: 13 steps are 13 K_AUTO[4] = 1 blocks (K = 1
+    is the fastest per step at radius 4), on kernel B, none on a plain
+    version."""
     g = tt.Grid3D(48, 40, 56, order=8)
     m = np.full(g.padded_shape, 1.5, np.float32)
     coords = tt.default_source_coords(1, 48, 40, 56)
@@ -128,8 +129,8 @@ def test_fast_ring_order8_on_card_matches_truth(dev):
     sim = tt.Simulator(g, tt.SimConfig(nsteps=13), m, coords, device=dev)
     B.reset_counts()
     state = sim.run(sim.prepare_state(u0, u0), src, 13)
-    assert sim.engine.sweep_k == 2 and B.launches("plain") == 0
-    assert B.counts["kernel"] == {(4, 2, "float32", "m"): 6, (4, 1, "float32", "m"): 1}
+    assert sim.engine.sweep_k == 1 and B.launches("plain") == 0
+    assert B.counts["kernel"] == {(4, 1, "float32", "m"): 13}
     _, c = sim.extract_state(state)
     _, ct, _ = tt.truth_run_ring(u0, u0, m, g, 0.001, 13, src, coords, device=dev)
     err = np.sqrt(((c - ct) ** 2).sum() / (ct**2).sum())
@@ -239,7 +240,61 @@ def test_bf16_paths_on_card_match_truth(dev, order, layered, kernel):
 def test_launch_failure_raises(dev):
     g = tt.Grid3D(16, 16, 16)
     U = torch.zeros((2,) + g.padded_shape, device=dev)
-    with pytest.raises(ValueError):  # beyond shared memory: refused before launch
-        B.sweep_fused(U, U.clone(), grid=g, dt=1e-3, m_val=1.5, k_fuse=2, tile=(64, 64, 64, 8))
-    with pytest.raises(RuntimeError):  # too many threads per block: the launch fails
-        B.sweep_fused(U, U.clone(), grid=g, dt=1e-3, m_val=1.5, k_fuse=1, tile=(64, 8, 32, 64))
+    with pytest.raises(ValueError):  # beyond its threads' cells: refused before launch
+        B.sweep_fused(U, U.clone(), grid=g, dt=1e-3, m_val=1.5, k_fuse=2, tile=(64, 32, 32, 8))
+    with pytest.raises(RuntimeError):  # more threads than the kernel's bound: the launch fails
+        B.sweep_fused(U, U.clone(), grid=g, dt=1e-3, m_val=1.5, k_fuse=1, tile=(64, 8, 32, 1024))
+
+
+@pytest.mark.parametrize("radius,dtype", [(1, torch.float32), (2, torch.float32),
+                                          (3, torch.float32), (4, torch.float32),
+                                          (1, torch.bfloat16), (2, torch.bfloat16),
+                                          (3, torch.bfloat16)])
+def test_kernel_b_k1_region_starts_off_16_bytes(dev, radius, dtype):
+    """K = 1: a region starts at z = H + bz * TZ - R, which with TZ = 20
+    lies off every 16-byte boundary in every column of blocks; each row is
+    staged as its aligned superset."""
+    g = tt.Grid3D(40, 24, 70, order=2 * radius)
+    _check_b(dev, g, 1, dtype, tile=(512, 8, 20, 256))
+
+
+@pytest.mark.parametrize("order,nz", [(2, 13), (2, 14), (2, 16), (6, 11), (6, 14), (6, 16)])
+@pytest.mark.parametrize("with_w", [False, True])
+def test_kernel_b_bf16_row_pitch_off_16_bytes(dev, order, nz, with_w):
+    """bf16 rows of nz + 2H elements: odd (copied plainly), 2 mod 8 (4-byte
+    copies) and 4 mod 8 (8-byte copies), at every K."""
+    g = tt.Grid3D(19, 21, nz, order=order)
+    assert (nz + 2 * g.halo) % 8 != 0
+    for k in range(1, B.k_max(g.radius) + 1):
+        _check_b(dev, g, k, torch.bfloat16, with_w)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+def test_kernel_b_grid_narrower_than_one_tile(dev, radius):
+    """ny and nz below every tile's TY and TZ: one block column, clipped."""
+    g = tt.Grid3D(40, 5, 6, order=2 * radius)
+    for k in range(1, B.k_max(radius) + 1):
+        _check_b(dev, g, k)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+def test_kernel_b_nx_not_a_multiple_of_xc(dev, radius):
+    """nx = 300 in x-chunks of 128 (a short third chunk) and of TILES' XC."""
+    g = tt.Grid3D(300, 16, 24, order=2 * radius)
+    for k in range(1, B.k_max(radius) + 1):
+        _check_b(dev, g, k, tile=(128,) + B.TILES[radius, k][1:])
+        _check_b(dev, g, k)
+
+
+def test_smem_bytes_is_what_the_launch_requests(dev):
+    """ops/stencil_sweep.smem_bytes states the launch's own expression."""
+    from tpufdtd_torch.ops import _build
+
+    lib = _build.library()
+    for (r, k), tile in B.TILES.items():
+        for storage in ("float32", "bfloat16"):
+            for medium in ("m", "w"):
+                want = B.smem_bytes(r, k, tile, storage, medium)
+                got = lib.tpufdtd_sweep_smem(r, k, tile[1], tile[2], int(storage == "bfloat16"),
+                                             int(medium == "w"))
+                assert got == want

@@ -174,38 +174,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_tiles_fit_shared_memory():
-    """Every (R, K) of TILES fits 227 KB, with rings of R+2, 2R+2 and 2R+1
-    planes (csrc/stencil_sweep.cu); each radius has K = 1..k_max(R), and
-    one level deeper fits no probed column."""
+    """Every (R, K) of TILES fits in every storage dtype: its region within
+    its threads' cells, its threads within one block, its staging rings
+    (2 STAGES + R planes in the storage dtype, rows padded to 16 B plus
+    16 B; STAGES + KR f32 planes of w) and 2K f32 centre planes within
+    227 KB (csrc/stencil_sweep.cuh:smem); each radius has K = 1..k_max(R),
+    and one level deeper fits no 8 x 8 column in one block."""
     assert {r for r, _ in sw.TILES} == set(sw.RADII) == {1, 2, 3, 4}
     for (r, k), tile in sw.TILES.items():
-        assert sw.smem_bytes(r, k) <= sw.SMEM_LIMIT
-        planes = (r + 2) + (2 * r + 2) + (2 * r + 1) * (k - 1)
         g2 = 2 * k * r
-        assert sw.smem_bytes(r, k) == 4 * planes * (tile[1] + g2) * (tile[2] + g2)
+        py, pz = tile[1] + g2, tile[2] + g2
+        for storage, esz in (("float32", 4), ("bfloat16", 2)):
+            assert sw.tile_fits(r, k, tile, storage)
+            v = 16 // esz
+            sp = -(-pz // v) * v + v
+            staged = (2 * sw.STAGES + r) * py * sp * esz
+            assert sw.smem_bytes(r, k, tile, storage) == staged + 4 * 2 * k * py * pz
+            w_ring = 4 * (sw.STAGES + k * r) * py * sp
+            assert sw.smem_bytes(r, k, tile, storage, "w") == staged + w_ring + 4 * 2 * k * py * pz
+        assert py * pz <= sw.cells_per_thread(r, k) * tile[3] and tile[3] <= sw.MAX_THREADS
     for r in sw.RADII:
         kmax = sw.k_max(r)
         assert sorted(k for rr, k in sw.TILES if rr == r) == list(range(1, kmax + 1))
-        assert sw.smem_bytes(r, kmax + 1, (512, 8, 16, 8)) > sw.SMEM_LIMIT or kmax == 4
+        assert kmax == 4 or not sw.tile_fits(r, kmax + 1, (512, 8, 8, sw.MAX_THREADS))
     assert sw.k_max(2) == 4 and sw.k_max(4) == 3
-    assert sw.smem_bytes(2, 5, sw.TILES[2, 4]) > sw.SMEM_LIMIT
-    # the other modes' shapes: radius 1-3, K within k_max, 32 x YT <= 32 x TY threads
+    assert [sw.cells_per_thread(2, k) for k in (1, 2, 3, 4)] == [7, 4, 8, 6]
+    assert [sw.min_blocks(2, k) for k in (1, 2, 3, 4)] == [2, 2, 1, 1]
+    assert sw.min_blocks(3, 2) == 2 and sw.min_blocks(4, 2) == 1
+    # the other modes' shapes: radius 1-3, K within k_max, shapes that fit
     for (storage, medium), tiles in sw.MODE_TILES.items():
         assert (storage, medium) in {("float32", "w"), ("bfloat16", "m"), ("bfloat16", "w")}
         for (r, k), tile in tiles.items():
-            assert r in sw.MODE_RADII and 1 <= k <= sw.k_max(r) and tile[3] <= tile[1]
-            assert sw.smem_bytes(r, k, tile) <= sw.SMEM_LIMIT
+            assert r in sw.MODE_RADII and 1 <= k <= sw.k_max(r)
+            assert sw.tile_fits(r, k, tile, storage, medium)
             assert sw.tile_for(r, k, storage, medium) == tile != sw.TILES[r, k]
     assert sw.tile_for(2, 2) == sw.TILES[2, 2]
+    for r, k in sw.TILES:  # every mode of every built (R, K) has a shape that fits
+        for storage in ("float32", "bfloat16"):
+            for medium in ("m", "w") if r in sw.MODE_RADII else ("m",):
+                assert sw.tile_fits(r, k, sw.tile_for(r, k, storage, medium), storage, medium)
     g = tt.Grid3D(6, 6, 6)
     U = torch.zeros((2,) + g.padded_shape)
     with pytest.raises(ValueError, match="shared memory"):
-        sw.sweep_fused(U, U.clone(), grid=g, dt=0.001, m_val=1.5, k_fuse=2, tile=(64, 64, 64, 8))
+        sw.sweep_fused(U, U.clone(), grid=g, dt=0.001, m_val=1.5, k_fuse=2,
+                       tile=(64, 128, 128, 256))
+    with pytest.raises(ValueError, match="cells per thread"):
+        sw.sweep_fused(U, U.clone(), grid=g, dt=0.001, m_val=1.5, k_fuse=2, tile=(64, 32, 32, 8))
 
 
 def test_gpu_shapes_span_several_x_chunks():
     """tests/test_torch_gpu.py and chip_smoke.py check kernel B at nx = 1100
-    for the code that stitches a block's x-chunks: wider than one chunk at
-    every (R, K), as 512^3 is at R = 1-2, K = 1."""
+    for the code that stitches a block's x-chunks: wider than two chunks at
+    every (R, K), and not a multiple of any chunk, so the last is short."""
     assert all(tile[0] < 1100 // 2 for tile in sw.TILES.values())
-    assert sw.TILES[1, 1][0] < 512 and sw.TILES[2, 1][0] < 512
+    assert all(1100 % tile[0] for tile in sw.TILES.values())

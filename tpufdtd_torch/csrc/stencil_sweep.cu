@@ -1,28 +1,45 @@
-// Kernel B (stencil_sweep.cuh): the C entry, and the f32 modes, scalar m at
-// radius 1-4 and the w stream at radius 1-3. The bf16 modes are built in
-// stencil_sweep_bf16.cu.
+// Kernel B (stencil_sweep.cuh): the C entries. Its modes are built in
+// stencil_sweep_<storage>_<medium>_r<radii>.cu: f32 with a scalar m at
+// radius 1-4, f32 with the w stream and bf16 with either at radius 1-3.
 
 #include "stencil_sweep.cuh"
 
 // uin and uout are f32, or bf16 when bf16_storage is nonzero; w is the
 // per-point w stream (f32), or null for a scalar m (coeffs[13] and the
-// isotropic scale coeffs[15]). Returns cudaGetLastError() after the launch;
-// 1000 + radius for a radius this mode is not built for.
+// isotropic scale coeffs[15]). The block is `threads` threads over a
+// ty x tz column of xc x-planes. Returns cudaGetLastError() after the
+// launch; 1000 + radius for a radius this mode is not built for, 2000 + k
+// for a depth.
 extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx,
                              int ny, int nz, int halo, int radius, int k,
                              int isotropic, int bf16_storage, int xc, int ty,
-                             int tz, int ythreads, const float* coeffs,
+                             int tz, int threads, const float* coeffs,
                              void* stream) {
   const Coeffs c = coeffs_from_host(coeffs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool iso = isotropic != 0;
-  if (bf16_storage)
-    return sweep_bf16(static_cast<const bf16*>(uin), static_cast<bf16*>(uout), w, nx, ny,
-                      nz, halo, radius, k, iso, xc, ty, tz, ythreads, c, s);
+  const sweep::Geom g{nx, ny, nz, halo, ty, tz, xc, 0, 0};
+  if (bf16_storage) {
+    const bf16* bin = static_cast<const bf16*>(uin);
+    bf16* bout = static_cast<bf16*>(uout);
+    if (w)
+      return (radius <= 2 ? sweep_bf16_w_r12 : sweep_bf16_w_r34)(bin, bout, w, g, radius, k,
+                                                                 threads, iso, c, s);
+    return (radius <= 2 ? sweep_bf16_m_r12 : sweep_bf16_m_r34)(bin, bout, w, g, radius, k,
+                                                               threads, iso, c, s);
+  }
   const float* fin = static_cast<const float*>(uin);
   float* fout = static_cast<float*>(uout);
-  return w ? launch_mode<float, true, 3>(fin, fout, w, nx, ny, nz, halo, radius, k, iso, xc,
-                                         ty, tz, ythreads, c, s)
-           : launch_mode<float, false, 4>(fin, fout, w, nx, ny, nz, halo, radius, k, iso, xc,
-                                          ty, tz, ythreads, c, s);
+  if (w)
+    return (radius <= 2 ? sweep_f32_w_r12 : sweep_f32_w_r34)(fin, fout, w, g, radius, k,
+                                                             threads, iso, c, s);
+  return (radius <= 2 ? sweep_f32_m_r12 : sweep_f32_m_r34)(fin, fout, w, g, radius, k, threads,
+                                                           iso, c, s);
+}
+
+// The dynamic shared memory tpufdtd_sweep requests for a block, in bytes
+// (ops/stencil_sweep.py:smem_bytes must agree).
+extern "C" long long tpufdtd_sweep_smem(int radius, int k, int ty, int tz, int bf16_storage,
+                                        int w_stream) {
+  return (long long)sweep::smem(radius, k, ty, tz, bf16_storage ? 2 : 4, w_stream != 0);
 }

@@ -1,52 +1,64 @@
 // Kernel B: K fused leapfrog steps per pass over device memory.
 //
 // Replaces the kernels of the fast two-level ring behind Simulator:
-// tpufdtd/ops/stencil_sweep.py:sweep_fused (radius 1-3, any K; its w and
-// bf16 modes included), tpufdtd/ops/stencil_pallas_z.py:packed_step (one
-// step, radius <= 4; here K = 1) and packed_fused2 (two steps; here radius
-// 4, K = 2). Input U_in = [u_{n-1}, u_n], output U_out = [u_{n+K-1},
-// u_{n+K}], both [2, nx+2H, ny+2H, nz+2H] in the reference layout, radius R
-// = 1..4 (orders 2-8, a template parameter). Rims stay frozen: the kernel
-// writes interior points only, and every stage keeps cells outside the
-// global interior at their frozen (loaded) values.
+// tpufdtd/ops/stencil_sweep.py:sweep_fused (radius 1-3, its w and bf16
+// modes included), tpufdtd/ops/stencil_pallas_z.py:packed_step (one step,
+// radius <= 4; here K = 1) and packed_fused2 (two steps; here radius 4,
+// K = 2). Input U_in = [u_{n-1}, u_n], output U_out = [u_{n+K-1}, u_{n+K}],
+// both [2, nx+2H, ny+2H, nz+2H] in the reference layout, radius R = 1..4
+// (orders 2-8). Rims stay frozen: the kernel writes interior points only,
+// and every stage keeps cells outside the global interior at their loaded
+// values.
 //
-// Modes (template parameters; both take R = 1..3, as the TPU sweep does):
+// Modes (template parameters; the w stream and bf16 take R = 1..3, as the
+// TPU sweep does):
 //   * medium: a scalar m, or a per-point w stream for a heterogeneous m
 //     (WM). w = dt^2/(h^2 m) for isotropic h, else dt^2/m, precomputed in
-//     f64 on the host. Each stage reads w at its own plane straight from
-//     device memory (__ldg, a batch of cells' loads in flight together):
-//     the K stages of a block touch each w plane K times, (K-1)R planes
-//     apart, and those planes sit in the 50 MB L2. A shared-memory w ring
-//     would cost (K-1)R+1 planes of the column and lower the deepest K.
-//   * storage T: f32, or bf16 with f32 compute. Each arriving plane is
-//     widened once into the f32 rings, every stage computes in f32 and
-//     hands f32 planes to the next with no intermediate rounding, and only
-//     the two output levels are rounded to bf16, once per K-block.
+//     f64 on the host, staged like u_{n-1} (below) in a ring of STAGES + KR
+//     f32 planes, from which each stage reads its own plane.
+//   * storage T: f32, or bf16 with f32 compute. Planes are staged in T and
+//     widened once, where a thread reads its cells into registers; stages
+//     compute in f32 and only the two output levels are rounded to bf16,
+//     once per K-block.
 //
-// Bound: device memory. One step alone moves 12 B per point in f32 (read
-// cur and prev, write next), 6 B in bf16; K fused steps move 16 (8) B per
-// point per K steps, plus 4 B of w per point per call in w mode, plus the
-// re-read halo of each block. Design: a 2.5-D sweep with temporal
-// blocking, the form of the reference's cuda_optimized.cu plane sweep.
-// Each block owns a TY x TZ column of (y, z) and a chunk of XC x-planes;
-// its threads walk each plane region's cells flattened.
-// It walks x, loading one plane of both input levels per iteration (in f32
-// with cp.async, so the next plane is in flight while the current one is
-// used; in bf16 with plain loads), and runs the K stages as a pipeline
-// along x: stage s updates plane p - s*R of level u_{n+s}, over a (y, z)
-// region R*(K-s) cells wider than the column. Each level lives in a
-// shared-memory ring of f32 planes; stage K writes straight to device
-// memory. The halo costs
-// (TY+2KR)(TZ+2KR)/(TY*TZ) in loads and 2KR/XC planes in x. The rings take
-// 4 (PREV + CUR + RING (K-1)) (TY+2KR) (TZ+2KR) bytes of shared memory in
-// every mode, at most 227 KB, so a larger R or K takes a narrower column
-// (tpufdtd_torch/ops/stencil_sweep.py:TILES).
+// Bound: device memory. K fused steps move 16 B per point in f32 (8 in
+// bf16), plus 4 B of w per point in w mode, plus the re-read halo of each
+// block (mostly from L2). Tensor cores have no role: a radius-R stencil is
+// a few adds and multiplies per loaded value, no matrix product.
 //
-// Not in place, unlike the TPU kernel: there one program swept x in order,
-// so it could overwrite planes it had finished reading. Hopper blocks run in
-// parallel in no order, and one block's halo is another's output, so the
-// result goes to a second buffer and the stepper ping-pongs between the
-// two (two more levels of device memory).
+// Design: a 2.5-D sweep along x with temporal blocking, with x-neighbours
+// in registers. A block owns a TY x TZ column of (y, z) and XC x-planes;
+// with its K*R = G halo that is a PY x PZ = (TY+2G) x (TZ+2G) plane region.
+// Each thread owns up to cells(R, K) cells of the region for the whole
+// sweep, in onion order (the column first, then each band of R cells
+// around it), so stage s updates a prefix of the cells and a warp idles
+// only where that prefix ends; their offsets and masks are computed once,
+// before the x loop. Per owned cell and level u_n .. u_{n+K-1} it keeps a
+// ring of L = 2R+1 planes in registers. Iteration p brings input plane p;
+// stage s then updates plane p - sR of level s over the region R*(K-s)
+// cells wider than the column. Its x+R neighbour, level s-1 at plane
+// p-(s-1)R, is what stage s-1 produced at the same cell in the same
+// iteration, so x-neighbours never touch shared memory; its y/z neighbours
+// come from a shared-memory centre plane of level s-1 at plane p-sR, which
+// every thread knows R iterations early, so all K centre planes are
+// written before the iteration's one barrier (double-buffered: one
+// __syncthreads per plane). Shared loads per cell-stage: 4R, and 1 for
+// u_{n-1} at stage 1 (the old kernel read 6R + 2). The x loop is unrolled
+// by L, so each ring slot is a fixed register and nothing is shifted.
+// Input planes arrive through cp.async of 16 bytes (8 or 4 when the row
+// pitch or the pointer allows no more; a bf16 row of odd pitch is copied
+// plainly), STAGES-1 planes ahead: u_n into a ring of STAGES planes, read
+// into the registers; u_{n-1} (and w) over stage 1's region into a ring of
+// STAGES + R (STAGES + KR) planes, read where stage 1 (each stage) needs
+// them. Each row is copied as its aligned superset and the extra columns
+// are never read. Shared memory (smem(); ops/stencil_sweep.py:smem_bytes)
+// is 25-200 KB; the registers bound the column: at K <= 2 two blocks of
+// 256 threads share an SM (128 registers each, min_blocks), deeper K takes
+// one block whose threads hold more cells in up to 255 registers.
+//
+// Not in place, unlike the TPU kernel: Hopper blocks run in parallel in no
+// order, and one block's halo is another's output, so the result goes to a
+// second buffer and the stepper ping-pongs between the two.
 //
 // Arithmetic: leap_isotropic of the TPU sweep kernel when hx == hy == hz
 // (one accumulator, times scale = dt*dt*r2/m rounded on the host, or times
@@ -59,41 +71,62 @@
 
 #include <cuda_pipeline_primitives.h>
 
-#include <type_traits>
-
 #include "fdtd_common.cuh"
 
-// Kernel B on bf16 levels (stencil_sweep_bf16.cu, its own translation unit
-// so that nvcc builds it beside the f32 modes); arguments as tpufdtd_sweep.
-int sweep_bf16(const bf16* uin, bf16* uout, const float* w, int nx, int ny,
-               int nz, int halo, int radius, int k, bool iso, int xc, int ty,
-               int tz, int ythreads, const Coeffs& c, cudaStream_t s);
+namespace sweep {
 
-namespace {
+constexpr int STAGES = 4;         // staging ring of u_n planes (STAGES-1 in flight)
+constexpr int MAX_THREADS = 256;  // threads per block (__launch_bounds__)
+constexpr int REG_OVERHEAD = 64;  // registers per thread besides the cells'
 
-// Shared-memory plane rings of one level, in planes, at radius R.
-template <int R>
-struct Rings {
-  static constexpr int RING = 2 * R + 1;      // each of u_{n+1} .. u_{n+K-1}
-  static constexpr int PREV = R + 2;          // u_{n-1}: planes p-R .. p+1
-  static constexpr int CUR = 2 * R + 2;       // u_n: planes p-2R .. p+1
+// Blocks per SM the registers must allow at (R, K): two at K <= 2 where a
+// cell's rings are short, so that two blocks share an SM (128 registers a
+// thread); else one, whose threads may then take 255 registers and hold
+// enough cells for a column that is not mostly halo.
+__host__ __device__ constexpr int min_blocks(int R, int K) {
+  return K <= 2 && K * (2 * R + 1) <= 14 ? 2 : 1;
+}
+
+// Cells per thread at (R, K): each takes K rings of 2R+1 registers, three
+// offsets and K temporaries. Mirrored by
+// ops/stencil_sweep.py:cells_per_thread.
+__host__ __device__ constexpr int cells(int R, int K) {
+  return ((min_blocks(R, K) == 2 ? 128 : 240) - REG_OVERHEAD) / (K * (2 * R + 1) + 3 + K);
+}
+
+// The (R, K) built: a column of at least 8 x 8 fits the cells of 256
+// threads only while R * K <= 12 (ops/stencil_sweep.py:k_max).
+__host__ __device__ constexpr bool built(int R, int K) {
+  return R >= 1 && R <= 4 && K >= 1 && K <= 4 && R * K <= 12;
+}
+
+// Dynamic shared memory of one block; ops/stencil_sweep.py:smem_bytes
+// states the same expression.
+inline size_t smem(int R, int K, int ty, int tz, int esz, bool wm) {
+  const int g2 = 2 * K * R, py = ty + g2, pz = tz + g2, v = 16 / esz;
+  const int sp = (pz + v - 1) / v * v + v;
+  const size_t w_ring = wm ? (size_t)(STAGES + K * R) * py * sp * sizeof(float) : 0;
+  return (size_t)(2 * STAGES + R) * py * sp * esz + w_ring + (size_t)2 * K * py * pz * sizeof(float);
+}
+
+struct Geom {
+  int nx, ny, nz, halo;  // interior extents, halo H
+  int ty, tz, xc;        // the block's column and x-planes
+  int vb;                // bytes per staging copy: 16, 8, 4, or 2 (plain)
+  int vbw;               // the same for the w stream
 };
-constexpr int BATCH = 4;      // z points per thread per pass of a stage
-constexpr int LOADS = 4;      // bf16 elements per thread in flight per level
 
-// Update at offset o of the centre plane; x[d] points to plane x-R+d,
-// sy is the y stride of a plane (z is contiguous); wv is the cell's w in
-// w mode (WM), unused otherwise.
+// Update of one cell: xn[d] = the level at plane x-R+d (xn[R] the centre),
+// u = the centre plane in shared memory at the cell's offset o, y stride sy.
 template <int R, bool ISO, bool WM>
-__device__ __forceinline__ float leap(const float* const* x, int o, int sy,
-                                      float up, const Coeffs& c, float wv) {
-  const float* u = x[R];
-  const float uc = u[o];
+__device__ __forceinline__ float leap(const float (&xn)[2 * R + 1], const float* u, int o,
+                                      int sy, float up, const Coeffs& c, float wv) {
+  const float uc = xn[R];
   if constexpr (ISO) {
     float acc = c.w0x3 * uc;
 #pragma unroll
     for (int d = R; d >= 1; --d) {
-      float nb = x[R - d][o] + x[R + d][o];
+      float nb = xn[R - d] + xn[R + d];
       nb = nb + u[o - d * sy];
       nb = nb + u[o + d * sy];
       nb = nb + u[o + d];
@@ -110,7 +143,7 @@ __device__ __forceinline__ float leap(const float* const* x, int o, int sy,
     float tx = r5, ty = r5, tz = r5;
 #pragma unroll
     for (int d = R; d >= 1; --d) {
-      tx = tx + c.w[d] * (x[R - d][o] + x[R + d][o]);
+      tx = tx + c.w[d] * (xn[R - d] + xn[R + d]);
       ty = ty + c.w[d] * (u[o - d * sy] + u[o + d * sy]);
       tz = tz + c.w[d] * (u[o - d] + u[o + d]);
     }
@@ -124,259 +157,318 @@ __device__ __forceinline__ float leap(const float* const* x, int o, int sy,
   }
 }
 
-struct Geometry {
-  int nx, ny, nz, halo;
-  int nxp, nyp, nzp;
-  int64_t gsx, level;  // x stride and level stride of the padded arrays
-  int K, G;            // depth and halo G = K*R
-  int PY, PZ, PS;      // plane region (TY+2G) x (TZ+2G) and its size
-  int y0, z0;          // region origin, padded coordinates
-  int ya, yb, za, zb;  // region clipped to the array, local coordinates
-};
-
-// Walks the cells start, start+step, ... of a region w cells wide, row by
-// row, keeping (row, col) up to date without a division per cell. Threads
-// of a block walk the region's cells flattened, so a row width that is not
-// a multiple of 32 leaves no lanes idle.
-struct Walk {
-  int row, col, drow, dcol, w;
-  __device__ __forceinline__ Walk(int start, int step, int w_) : w(w_) {
-    row = start / w;
-    col = start - row * w;
-    drow = step / w;
-    dcol = step - drow * w;
-  }
-  __device__ __forceinline__ void next() {
-    row += drow;
-    col += dcol;
-    if (col >= w) {
-      col -= w;
-      ++row;
+// Copies of one staged plane: `rows` rows of `nch` chunks of VB bytes
+// from src (row stride sstride elements) to dst (row stride dstride).
+// VB = 2 (a bf16 row of odd pitch) copies plainly.
+template <int VB, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dstride, const T* __restrict__ src,
+                                          int sstride, int rows, int nch) {
+  constexpr int VE = VB / (int)sizeof(T);
+  const int n = rows * nch;
+  // i / nch by a float reciprocal: exact while n < 2^12 nch, far beyond
+  // any region
+  const float inv = 1.0f / (float)nch;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = (int)(((float)i + 0.5f) * inv), ch = i - r * nch;
+    T* d = dst + r * dstride + ch * VE;
+    const T* s = src + (int64_t)r * sstride + ch * VE;
+    if constexpr (VB >= 4) {
+      __pipeline_memcpy_async(d, s, VB);
+    } else {
+      *d = *s;
     }
   }
-};
-
-// The ring slot holding plane x of level j (-1 = u_{n-1}, 0 = u_n, ...).
-template <int R>
-__device__ __forceinline__ float* plane(float* smem, const Geometry& g, int j,
-                                        int x) {
-  using Q = Rings<R>;
-  if (j < 0) return smem + (x % Q::PREV) * g.PS;
-  if (j == 0) return smem + (Q::PREV + x % Q::CUR) * g.PS;
-  return smem + (Q::PREV + Q::CUR + (j - 1) * Q::RING + x % Q::RING) * g.PS;
 }
 
-// Start the copies of input plane p of both levels into their rings, as
-// one commit group (empty when !live, which keeps the group count uniform).
-// bf16: cp.async copies 4, 8 or 16 bytes and cannot move one 2-byte
-// element alone, and a padded row of nz + 2H bf16 elements is 16-byte
-// aligned only when (nz + 2H) % 8 == 0; so each element is loaded plainly,
-// LOADS at a time per level, widened in registers and stored to the f32
-// rings, which is right at every alignment. Its commit group is empty.
-template <int R, typename T>
-__device__ __forceinline__ void load_plane(float* smem, const Geometry& g,
-                                           const T* __restrict__ uin,
-                                           int p, bool live) {
-  float* dp = plane<R>(smem, g, -1, p);
-  float* dc = plane<R>(smem, g, 0, p);
-  const int64_t base = (int64_t)p * g.gsx + (int64_t)g.y0 * g.nzp + g.z0;
-  const int w = g.zb - g.za, n = w * (g.yb - g.ya);
-  const int nt = blockDim.x * blockDim.y;
-  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
-  if (!live || w <= 0 || n <= 0) {
-    __pipeline_commit();
+// (row, col) in a block's region of the cell at onion index idx: the
+// column's TY x TZ cells first, row by row, then each band of R cells
+// around it, inner band first, each band's rows in order. The cells stage
+// s updates are then the first n_s = (TY+2e)(TZ+2e), e = R(K-s), so a warp
+// is idle at a stage only where that prefix ends.
+template <int R, int K>
+__device__ __forceinline__ void onion(int idx, int ty, int tz, int& row, int& col) {
+  int h = ty, w = tz, off = K * R;
+  if (idx < h * w) {
+    row = off + idx / w;
+    col = off + idx % w;
     return;
   }
-  Walk c(tid, nt, w);
-  if constexpr (std::is_same_v<T, float>) {
-    for (int i = tid; i < n; i += nt, c.next()) {
-      const int ly = g.ya + c.row, lz = g.za + c.col;
-      const int64_t gi = base + (int64_t)ly * g.nzp + lz;
-      __pipeline_memcpy_async(dp + ly * g.PZ + lz, uin + gi, sizeof(float));
-      __pipeline_memcpy_async(dc + ly * g.PZ + lz, uin + g.level + gi, sizeof(float));
-    }
-  } else {
-    for (int i = tid; i < n; i += LOADS * nt) {
-      float vp[LOADS], vc[LOADS];
-      int o[LOADS];
+  idx -= h * w;
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        o[j] = -1;
-        if (i + j * nt < n) {
-          const int ly = g.ya + c.row, lz = g.za + c.col;
-          const int64_t gi = base + (int64_t)ly * g.nzp + lz;
-          vp[j] = to_f32(uin[gi]);
-          vc[j] = to_f32(uin[g.level + gi]);
-          o[j] = ly * g.PZ + lz;
-        }
-        c.next();
+  for (int j = 1; j <= K; ++j) {
+    off -= R;
+    const int w2 = w + 2 * R, nb = (h + 2 * R) * w2 - h * w;
+    if (idx < nb) {
+      if (idx < R * w2) {  // the band's top rows
+        row = off + idx / w2;
+        col = off + idx % w2;
+      } else if ((idx -= R * w2) < h * 2 * R) {  // R cells each side of a middle row
+        const int rr = idx / (2 * R), cc = idx % (2 * R);
+        row = off + R + rr;
+        col = off + (cc < R ? cc : w + cc);
+      } else {  // the band's bottom rows
+        idx -= h * 2 * R;
+        row = off + R + h + idx / w2;
+        col = off + idx % w2;
       }
+      return;
+    }
+    idx -= nb;
+    h += 2 * R;
+    w = w2;
+  }
+  row = col = 0;
+}
+
+template <int R, int K, bool ISO, typename T, bool WM>
+__global__ void __launch_bounds__(MAX_THREADS, min_blocks(R, K))
+kernel(const T* __restrict__ uin, T* __restrict__ uout, const float* __restrict__ wgt,
+       Geom g, Coeffs c) {
+  constexpr int L = 2 * R + 1, G = K * R, C = cells(R, K);
+  constexpr int V = 16 / (int)sizeof(T), SM = STAGES + R, SW = STAGES + K * R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = g.halo, NT = blockDim.x;
+  const int nxp = g.nx + 2 * H, nyp = g.ny + 2 * H, nzp = g.nz + 2 * H;
+  const int64_t gsx = (int64_t)nyp * nzp, lvl = (int64_t)nxp * gsx;
+  const int PY = g.ty + 2 * G, PZ = g.tz + 2 * G, PS = PY * PZ;
+  const int SP = (PZ + V - 1) / V * V + V, SS = PY * SP;
+  T* stage = reinterpret_cast<T*>(smem_raw);  // u_n: STAGES planes
+  T* pring = stage + STAGES * SS;              // u_{n-1}: STAGES + R planes
+  // w (w mode): STAGES + K*R f32 planes, row pitch SP
+  float* wring = reinterpret_cast<float*>(smem_raw + (size_t)(2 * STAGES + R) * SS * sizeof(T));
+  float* centre = wring + (WM ? SW * SS : 0);
+  // cells updated at stage s (s = 0: the whole region)
+  auto ncells = [&](int s) { return (g.ty + 2 * R * (K - s)) * (g.tz + 2 * R * (K - s)); };
+
+  // the region's origin (padded coordinates), clipped to the array
+  const int y0 = H + (int)blockIdx.y * g.ty - G, z0 = H + (int)blockIdx.x * g.tz - G;
+  const int ya = max(0, -y0), yb = min(PY, nyp - y0);
+  const int za = max(0, -z0), zb = min(PZ, nzp - z0);
+  // staged rows: the aligned superset [zA, zB) of the columns in the array
+  // (u_n), and of those of stage 1's region (u_{n-1}), at staging column
+  // z - zA
+  const int ve = max(1, g.vb / (int)sizeof(T));
+  const int zA = (z0 + za) / ve * ve, zB = (z0 + zb + ve - 1) / ve * ve;
+  const int nrow = max(0, yb - ya), nch = zb > za ? (zB - zA) / ve : 0;
+  const int e1 = R * (K - 1);
+  const int ya1 = max(ya, G - e1), yb1 = min(yb, G + g.ty + e1);
+  const int za1 = max(za, G - e1), zb1 = min(zb, G + g.tz + e1);
+  const int zA1 = (z0 + za1) / ve * ve;
+  const int nrow1 = max(0, yb1 - ya1);
+  const int nch1 = zb1 > za1 ? ((z0 + zb1 + ve - 1) / ve * ve - zA1) / ve : 0;
+  const int vew = max(1, g.vbw / 4);  // w: stage 1's region, from staging column zAw - zA
+  const int zAw = (z0 + za1) / vew * vew;
+  const int nchw = zb1 > za1 ? ((z0 + zb1 + vew - 1) / vew * vew - zAw) / vew : 0;
+  // output planes [xs, xe); input planes [p0, p1); iterations [p0, pend);
+  // u_{n-1}'s planes [lo1, hi1), stage 1's
+  const int xs = H + (int)blockIdx.z * g.xc, xe = min(xs + g.xc, H + g.nx);
+  const int p0 = max(0, xs - G), p1 = min(nxp, xe + G), pend = xe + G;
+  const int lo1 = max(0, xs - e1), hi1 = min(nxp, xe + e1);
+
+  // the cells of this thread, fixed for the sweep
+  int o[C], so[C], gof[C];  // offset in a centre plane, in staging, in a padded plane
+  unsigned long long lp = 0;  // bit i*K + s-1: cell i is updated (not frozen) at stage s
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        if (o[j] >= 0) {
-          dp[o[j]] = vp[j];
-          dc[o[j]] = vc[j];
+  for (int i = 0; i < C; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    int r = 0, col = 0;
+    if (idx < PS) onion<R, K>(idx, g.ty, g.tz, r, col);
+    o[i] = r * PZ + col;
+    const bool arr = idx < PS && r >= ya && r < yb && col >= za && col < zb;
+    so[i] = arr ? r * SP + col + (z0 - zA) : 0;
+    gof[i] = arr ? (y0 + r) * nzp + z0 + col : 0;
+    const int gy = y0 + r, gz = z0 + col;
+    const bool in = arr && gy >= H && gy < H + g.ny && gz >= H && gz < H + g.nz;
+#pragma unroll
+    for (int s = 1; s <= K; ++s)
+      if (in && idx < ncells(s)) lp |= 1ull << (i * K + s - 1);
+  }
+
+  // the copies of input plane x, both levels and (w mode) w, as one commit
+  // group (empty past the input planes)
+  const T* src0 = uin + lvl + (int64_t)(y0 + ya) * nzp + zA;
+  const T* src1 = uin + (int64_t)(y0 + ya1) * nzp + zA1;
+  const float* srcw = wgt + (int64_t)(y0 + ya1) * nzp + zAw;
+  auto copy = [&](auto* dst, const auto* src, int rows, int chunks, int vb) {
+    switch (vb) {
+      case 16: copy_rows<16>(dst, SP, src, nzp, rows, chunks); break;
+      case 8: copy_rows<8>(dst, SP, src, nzp, rows, chunks); break;
+      case 4: copy_rows<4>(dst, SP, src, nzp, rows, chunks); break;
+      default: copy_rows<2>(dst, SP, src, nzp, rows, chunks); break;
+    }
+  };
+  auto issue = [&](int x, int slot, int pslot, int wslot) {
+    if (x < p1 && nrow > 0 && nch > 0)
+      copy(stage + slot * SS + ya * SP, src0 + (int64_t)x * gsx, nrow, nch, g.vb);
+    if (x >= lo1 && x < hi1 && nrow1 > 0 && nch1 > 0) {
+      copy(pring + pslot * SS + ya1 * SP + (zA1 - zA), src1 + (int64_t)x * gsx, nrow1, nch1, g.vb);
+      if constexpr (WM)
+        copy(wring + wslot * SS + ya1 * SP + (zAw - zA), srcw + (int64_t)x * gsx, nrow1, nchw,
+             g.vbw);
+    }
+    __pipeline_commit();
+  };
+#pragma unroll
+  for (int d = 0; d < STAGES - 1; ++d) issue(p0 + d, d, d, d);
+
+  float q[K][C][L];  // q[j]: level j (u_{n+j}) at plane x in slot (x - p0) % L
+  int slot = 0;      // staging slot of plane p
+  int pslot = 0;     // slot of plane p in u_{n-1}'s ring
+  int wslot = 0;     // slot of plane p in w's ring
+  for (int base = p0; base < pend; base += L) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int p = base + j;
+      if (p < pend) {
+        // register slot of plane p - a
+#define SLOT(a) ((j + (K + 2) * L - (a)) % L)
+        float* cbuf = centre + ((p - p0) & 1) * K * PS;
+        // the centre planes of this iteration, known R iterations ago, over
+        // the region of the stage before
+#pragma unroll
+        for (int s = 1; s <= K; ++s) {
+          const int x = p - s * R;
+          const int e = R * (K - s);
+          if (x >= max(0, xs - e) && x < min(nxp, xe + e)) {
+            float* u = cbuf + (s - 1) * PS;
+            const int n = ncells(s - 1);
+#pragma unroll
+            for (int i = 0; i < C; ++i) {
+              if (i * NT < n && (int)threadIdx.x + i * NT < n) u[o[i]] = q[s - 1][i][SLOT(s * R)];
+            }
+          }
         }
+        __pipeline_wait_prior(STAGES - 2);
+        __syncthreads();  // plane p has landed; the centre planes are written
+        if (p < p1) {
+          const T* sp = stage + slot * SS;
+#pragma unroll
+          for (int i = 0; i < C; ++i)
+            if (i * NT < PS) q[0][i][SLOT(0)] = to_f32(sp[so[i]]);
+        }
+        const T* prev = pring + (pslot >= R ? pslot - R : pslot + SM - R) * SS;
+        // slots read in the last iteration, before this barrier
+        const int wbase = wslot;
+        issue(p + STAGES - 1, slot == 0 ? STAGES - 1 : slot - 1,
+              pslot + STAGES - 1 < SM ? pslot + STAGES - 1 : pslot + STAGES - 1 - SM,
+              wslot + STAGES - 1 < SW ? wslot + STAGES - 1 : wslot + STAGES - 1 - SW);
+        slot = slot == STAGES - 1 ? 0 : slot + 1;
+        pslot = pslot == SM - 1 ? 0 : pslot + 1;
+        wslot = wslot == SW - 1 ? 0 : wslot + 1;
+#pragma unroll
+        for (int s = 1; s <= K; ++s) {
+          const int x = p - s * R;
+          const int e = R * (K - s);
+          if (x >= max(0, xs - e) && x < min(nxp, xe + e)) {
+            const bool x_in = x >= H && x < H + g.nx;
+            const float* u = cbuf + (s - 1) * PS;
+            const float* wp = wring + (wbase >= s * R ? wbase - s * R : wbase + SW - s * R) * SS;
+            const int n = ncells(s);
+#pragma unroll
+            for (int i = 0; i < C; ++i) {
+              if (i * NT >= n) continue;
+              float v = q[s - 1][i][SLOT(s * R)];
+              if (x_in && (lp >> (i * K + s - 1) & 1ull)) {
+                float xn[L];
+#pragma unroll
+                for (int d = 0; d < L; ++d) xn[d] = q[s - 1][i][SLOT((s + 1) * R - d)];
+                const float up = s == 1 ? to_f32(prev[so[i]])
+                                        : q[s >= 2 ? s - 2 : 0][i][SLOT(s * R)];
+                float w = 0.0f;
+                if constexpr (WM) w = wp[so[i]];
+                v = leap<R, ISO, WM>(xn, u, o[i], PZ, up, c, w);
+                if (s == K) {
+                  const int64_t gi = (int64_t)x * gsx + gof[i];
+                  uout[gi] = from_f32<T>(q[K - 1][i][SLOT(K * R)]);
+                  uout[lvl + gi] = from_f32<T>(v);
+                }
+              }
+              if (s < K) q[s][i][SLOT(s * R)] = v;
+            }
+          }
+        }
+#undef SLOT
       }
     }
   }
-  __pipeline_commit();
 }
 
-template <int R, bool ISO, typename T, bool WM>
-__global__ void sweep_kernel(const T* __restrict__ uin, T* __restrict__ uout,
-                             const float* __restrict__ wgt, int nx, int ny,
-                             int nz, int halo, int K, int TY, int TZ, int XC,
-                             Coeffs c) {
-  extern __shared__ float smem[];
-  Geometry g;
-  g.nx = nx; g.ny = ny; g.nz = nz; g.halo = halo;
-  g.nxp = nx + 2 * halo; g.nyp = ny + 2 * halo; g.nzp = nz + 2 * halo;
-  g.gsx = (int64_t)g.nyp * g.nzp;
-  g.level = (int64_t)g.nxp * g.gsx;
-  g.K = K; g.G = K * R;
-  g.PY = TY + 2 * g.G; g.PZ = TZ + 2 * g.G; g.PS = g.PY * g.PZ;
-  g.y0 = halo + (int)blockIdx.y * TY - g.G;
-  g.z0 = halo + (int)blockIdx.x * TZ - g.G;
-  g.ya = max(0, -g.y0); g.yb = min(g.PY, g.nyp - g.y0);
-  g.za = max(0, -g.z0); g.zb = min(g.PZ, g.nzp - g.z0);
-
-  // output planes [xs, xe); input planes [p0, p1)
-  const int xs = halo + (int)blockIdx.z * XC;
-  const int xe = min(xs + XC, halo + nx);
-  const int p0 = max(0, xs - g.G), p1 = min(g.nxp, xe + g.G);
-  // the global interior in local (y, z) coordinates
-  const int iy0 = halo - g.y0, iy1 = halo + ny - g.y0;
-  const int iz0 = halo - g.z0, iz1 = halo + nz - g.z0;
-
-  load_plane<R, T>(smem, g, uin, p0, true);
-  for (int p = p0; p < xe + g.G; ++p) {
-    __pipeline_wait_prior(0);
-    __syncthreads();  // plane p has landed; iteration p-1 is done with its slots
-    load_plane<R, T>(smem, g, uin, p + 1, p + 1 < p1);
-    for (int s = 1; s <= K; ++s) {
-      const int x = p - s * R;
-      const int e = R * (K - s);
-      if (x >= max(0, xs - e) && x < min(g.nxp, xe + e)) {
-        const bool x_in = x >= halo && x < halo + nx;
-        const float* in[2 * R + 1];
-#pragma unroll
-        for (int d = 0; d <= 2 * R; ++d)
-          in[d] = plane<R>(smem, g, s - 1, x_in ? x - R + d : x);
-        const float* prev = plane<R>(smem, g, s - 2, x);
-        const float* done = s == K ? plane<R>(smem, g, K - 1, x) : nullptr;
-        float* outp = s < K ? plane<R>(smem, g, s, x) : nullptr;
-        const int ya = max(g.G - e, g.ya), yb = min(g.G + TY + e, g.yb);
-        const int za = max(g.G - e, g.za), zb = min(g.G + TZ + e, g.zb);
-        // BATCH cells per thread per pass, all computed before any is
-        // stored: the stores alias the shared-memory reads, so batching is
-        // what lets their loads overlap
-        const int w = zb - za, n = w > 0 && yb > ya ? w * (yb - ya) : 0;
-        const int nt = blockDim.x * blockDim.y;
-        const int tid = threadIdx.x + blockDim.x * threadIdx.y;
-        Walk cell(tid, nt, max(w, 1));
-        for (int i = tid; i < n; i += BATCH * nt) {
-          float v[BATCH];
-          int ly[BATCH], lz[BATCH];
-          bool inside[BATCH];
-          if constexpr (WM) {
-            // the batch's w loads are all in flight before its first leap
-            float wv[BATCH];
-#pragma unroll
-            for (int j = 0; j < BATCH; ++j) {
-              ly[j] = ya + cell.row;
-              lz[j] = za + cell.col;
-              cell.next();
-              inside[j] = x_in && ly[j] >= iy0 && ly[j] < iy1 && lz[j] >= iz0 && lz[j] < iz1;
-              const int64_t gi =
-                  (int64_t)x * g.gsx + (int64_t)(g.y0 + ly[j]) * g.nzp + g.z0 + lz[j];
-              wv[j] = i + j * nt < n && inside[j] ? __ldg(wgt + gi) : 0.0f;
-            }
-#pragma unroll
-            for (int j = 0; j < BATCH; ++j) {
-              const int o = ly[j] * g.PZ + lz[j];
-              v[j] = 0.0f;
-              if (i + j * nt < n)
-                v[j] = inside[j] ? leap<R, ISO, true>(in, o, g.PZ, prev[o], c, wv[j]) : in[R][o];
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < BATCH; ++j) {
-              ly[j] = ya + cell.row;
-              lz[j] = za + cell.col;
-              cell.next();
-              const int o = ly[j] * g.PZ + lz[j];
-              inside[j] = x_in && ly[j] >= iy0 && ly[j] < iy1 && lz[j] >= iz0 && lz[j] < iz1;
-              v[j] = 0.0f;
-              if (i + j * nt < n)
-                v[j] = inside[j] ? leap<R, ISO, false>(in, o, g.PZ, prev[o], c, 0.0f) : in[R][o];
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < BATCH; ++j) {
-            if (i + j * nt >= n) break;
-            const int o = ly[j] * g.PZ + lz[j];
-            if (s < K) {
-              outp[o] = v[j];
-            } else if (inside[j]) {
-              const int64_t gi =
-                  (int64_t)x * g.gsx + (int64_t)(g.y0 + ly[j]) * g.nzp + g.z0 + lz[j];
-              uout[gi] = from_f32<T>(done[o]);
-              uout[g.level + gi] = from_f32<T>(v[j]);
-            }
-          }
-        }
-      }
-      if (s < K) __syncthreads();
-    }
-  }
+// bytes per staging copy for rows of nzp elements of T at p: the widest of
+// 16, 8, 4 that divides the row pitch and the pointer's alignment; 2 (a
+// plain copy) for a bf16 row of odd pitch
+template <typename T>
+int copy_bytes(const void* p, int nzp) {
+  for (int vb = 16; vb >= 4; vb /= 2)
+    if ((nzp * (int)sizeof(T)) % vb == 0 && reinterpret_cast<uintptr_t>(p) % vb == 0) return vb;
+  return (int)sizeof(T) == 4 ? 4 : 2;
 }
 
-template <int R, bool ISO, typename T, bool WM>
-int launch(const T* uin, T* uout, const float* w, int nx, int ny, int nz,
-           int halo, int k, int xc, int ty, int tz, int ythreads,
-           const Coeffs& c, cudaStream_t stream) {
-  using Q = Rings<R>;
-  const int g2 = 2 * k * R;
-  const int planes = Q::PREV + Q::CUR + Q::RING * (k - 1);
-  const size_t smem = sizeof(float) * (size_t)planes * (ty + g2) * (tz + g2);
-  cudaError_t e = cudaFuncSetAttribute(
-      sweep_kernel<R, ISO, T, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int R, int K, bool ISO, typename T, bool WM>
+int launch_k(const T* uin, T* uout, const float* w, Geom g, int threads, const Coeffs& c,
+             cudaStream_t stream) {
+  const int g2 = 2 * K * R;
+  if ((g.ty + g2) * (g.tz + g2) > cells(R, K) * threads) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem(R, K, g.ty, g.tz, (int)sizeof(T), WM);
+  cudaError_t e = cudaFuncSetAttribute(kernel<R, K, ISO, T, WM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 block(32, ythreads, 1);
-  const dim3 grid((nz + tz - 1) / tz, (ny + ty - 1) / ty, (nx + xc - 1) / xc);
-  sweep_kernel<R, ISO, T, WM><<<grid, block, smem, stream>>>(
-      uin, uout, w, nx, ny, nz, halo, k, ty, tz, xc, c);
+  g.vb = copy_bytes<T>(uin, g.nz + 2 * g.halo);
+  // w's chunks start at staging columns aligned to u's copies: no wider
+  g.vbw = WM ? min(copy_bytes<float>(w, g.nz + 2 * g.halo), 4 * max(1, g.vb / (int)sizeof(T))) : 0;
+  const dim3 grid((g.nz + g.tz - 1) / g.tz, (g.ny + g.ty - 1) / g.ty, (g.nx + g.xc - 1) / g.xc);
+  kernel<R, K, ISO, T, WM><<<grid, threads, bytes, stream>>>(uin, uout, w, g, c);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int R, int K, typename T, bool WM>
+int launch_iso(const T* uin, T* uout, const float* w, Geom g, int threads, bool iso,
+               const Coeffs& c, cudaStream_t s) {
+  if constexpr (built(R, K)) {
+    return iso ? launch_k<R, K, true, T, WM>(uin, uout, w, g, threads, c, s)
+               : launch_k<R, K, false, T, WM>(uin, uout, w, g, threads, c, s);
+  } else {
+    return 2000 + K;
+  }
+}
+
 template <int R, typename T, bool WM>
-int launch_r(const T* uin, T* uout, const float* w, int nx, int ny, int nz,
-             int halo, int k, bool iso, int xc, int ty, int tz, int ythreads,
+int launch_r(const T* uin, T* uout, const float* w, Geom g, int k, int threads, bool iso,
              const Coeffs& c, cudaStream_t s) {
-  return iso ? launch<R, true, T, WM>(uin, uout, w, nx, ny, nz, halo, k, xc, ty, tz,
-                                      ythreads, c, s)
-             : launch<R, false, T, WM>(uin, uout, w, nx, ny, nz, halo, k, xc, ty, tz,
-                                       ythreads, c, s);
+  switch (k) {
+    case 1: return launch_iso<R, 1, T, WM>(uin, uout, w, g, threads, iso, c, s);
+    case 2: return launch_iso<R, 2, T, WM>(uin, uout, w, g, threads, iso, c, s);
+    case 3: return launch_iso<R, 3, T, WM>(uin, uout, w, g, threads, iso, c, s);
+    case 4: return launch_iso<R, 4, T, WM>(uin, uout, w, g, threads, iso, c, s);
+    default: return 2000 + k;
+  }
 }
 
-// Kernel B in one mode (storage T, medium WM) at radius 1..MAXR; 1000 +
-// radius for a radius this mode is not built for.
-template <typename T, bool WM, int MAXR>
-int launch_mode(const T* uin, T* uout, const float* w, int nx, int ny, int nz,
-                int halo, int radius, int k, bool iso, int xc, int ty, int tz,
-                int ythreads, const Coeffs& c, cudaStream_t s) {
-  switch (radius) {
-    case 1: return launch_r<1, T, WM>(uin, uout, w, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
-    case 2: return launch_r<2, T, WM>(uin, uout, w, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
-    case 3: return launch_r<3, T, WM>(uin, uout, w, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
-    default: break;
+// Kernel B in one mode (storage T, medium WM) at radius RLO..RHI; 1000 +
+// radius for a radius not built here, 2000 + K for a depth.
+template <typename T, bool WM, int RLO, int RHI>
+int launch_mode(const T* uin, T* uout, const float* w, Geom g, int radius, int k, int threads,
+                bool iso, const Coeffs& c, cudaStream_t s) {
+  if constexpr (RLO <= RHI) {
+    if (radius == RLO) return launch_r<RLO, T, WM>(uin, uout, w, g, k, threads, iso, c, s);
+    return launch_mode<T, WM, RLO + 1, RHI>(uin, uout, w, g, radius, k, threads, iso, c, s);
+  } else {
+    return 1000 + radius;
   }
-  if constexpr (MAXR >= 4) {
-    if (radius == 4)
-      return launch_r<4, T, WM>(uin, uout, w, nx, ny, nz, halo, k, iso, xc, ty, tz, ythreads, c, s);
-  }
-  return 1000 + radius;
 }
 
-}  // namespace
+}  // namespace sweep
+
+// The modes at radius 1-2 and 3-4, one translation unit each so that nvcc
+// builds them in parallel (stencil_sweep_<storage>_<medium>_r<radii>.cu);
+// arguments as tpufdtd_sweep (stencil_sweep.cu).
+#define TPUFDTD_SWEEP_MODE(name, T)                                                        \
+  int name(const T* uin, T* uout, const float* w, sweep::Geom g, int radius, int k,        \
+           int threads, bool iso, const Coeffs& c, cudaStream_t s)
+TPUFDTD_SWEEP_MODE(sweep_f32_m_r12, float);
+TPUFDTD_SWEEP_MODE(sweep_f32_m_r34, float);
+TPUFDTD_SWEEP_MODE(sweep_f32_w_r12, float);
+TPUFDTD_SWEEP_MODE(sweep_f32_w_r34, float);
+TPUFDTD_SWEEP_MODE(sweep_bf16_m_r12, bf16);
+TPUFDTD_SWEEP_MODE(sweep_bf16_m_r34, bf16);
+TPUFDTD_SWEEP_MODE(sweep_bf16_w_r12, bf16);
+TPUFDTD_SWEEP_MODE(sweep_bf16_w_r34, bf16);

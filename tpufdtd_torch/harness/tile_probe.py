@@ -2,10 +2,11 @@
 
 Times `sweep_fused` at n^3 in one mode (storage dtype, and a scalar m or
 the w stream) for each stencil radius R and fusion depth K over a grid of
-block shapes (XC, TY, TZ, YT) that fit shared memory, with CUDA events,
-and prints each shape's ms per call and ms per step, the fastest shape per
+block shapes (XC, TY, TZ, NT) that fit (stencil_sweep.tile_fits), with
+CUDA events, and prints each shape's ms per call and ms per step, the fastest shape per
 (R, K) and the one the kernel takes (stencil_sweep.tile_for), then the
-fastest K >= 2 per step of each radius (stepper.K_AUTO).
+fastest K per step of each radius (stepper.K_AUTO, from the f32 scalar-m
+mode) and the fastest K >= 2 (stepper.MODE_K, the w and bf16 modes').
 Every shape is first checked bitwise against the kernel's own shape on one
 small grid, so a shape that computes something else fails the probe
 instead of winning it.
@@ -27,21 +28,25 @@ from ..config import Grid3D
 from ..ops import stencil_sweep
 from ..stepper import resolve_device
 
-XCS = (128, 256, 512)
-TYS = (8, 16, 32)
-TZS = (16, 32, 64, 128)
-YTS = (4, 8, 16)
+XCS = (256, 512)
+TYS = (8, 16, 24, 32, 40, 48)
+TZS = (8, 16, 24, 32, 40, 48, 64, 96, 128)
+NTS = (256,)
 
 
-def candidates(radius: int, k: int, first=None) -> list:
-    """Block shapes for (radius, k): 32 x YT threads, YT <= TY, within the
-    shared memory of one block; `first` (default TILES[radius, k]) comes
-    first."""
+def candidates(radius: int, k: int, first=None, storage: str = "float32",
+               medium: str = "m") -> list:
+    """Block shapes for (radius, k) of 256 threads that fit
+    (stencil_sweep.tile_fits) and give at least half of their threads'
+    cells work; `first` (default TILES[radius, k]) comes first."""
     out = [stencil_sweep.TILES[radius, k] if first is None else first]
-    for tile in itertools.product(XCS, TYS, TZS, YTS):
-        if tile[3] <= tile[1] and tile not in out:
-            if stencil_sweep.smem_bytes(radius, k, tile) <= stencil_sweep.SMEM_LIMIT:
-                out.append(tile)
+    g2 = 2 * k * radius
+    cells = stencil_sweep.cells_per_thread(radius, k)
+    for tile in itertools.product(XCS, TYS, TZS, NTS):
+        _xc, ty, tz, nt = tile
+        if (2 * (ty + g2) * (tz + g2) > cells * nt and tile not in out
+                and stencil_sweep.tile_fits(radius, k, tile, storage, medium)):
+            out.append(tile)
     return out
 
 
@@ -93,7 +98,7 @@ def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
             want = stencil_sweep.sweep_fused(Us, outs.clone(), grid=small, w=ws, **kw)
             U, out, w = _pair(grid, dev, 100 + k, dtype, medium)
             rows = []
-            for tile in candidates(R, k, held_tile):
+            for tile in candidates(R, k, held_tile, storage, medium):
                 got = stencil_sweep.sweep_fused(Us, outs.clone(), grid=small, w=ws, tile=tile,
                                                 **kw)
                 if not torch.equal(got, want):
@@ -110,11 +115,13 @@ def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
                   f" {best[1] / k:.4f} ms/step; held {held[0]} {held[1]:.4f} ms/call")
             results[R, k] = rows
             del U, out, w
-        deep = {k: rows[0][1] / k for (r, k), rows in results.items() if r == R and k >= 2}
-        if deep:
-            k_auto = min(deep, key=deep.get)
-            print(f"{storage} {medium} R={R} fastest K >= 2 per step: K={k_auto}"
-                  f" ({deep[k_auto]:.4f} ms/step)")
+        per_step = {k: rows[0][1] / k for (r, k), rows in results.items() if r == R}
+        for k_min in (1, 2):
+            ks_ = {k: t for k, t in per_step.items() if k >= k_min}
+            if ks_:
+                k_auto = min(ks_, key=ks_.get)
+                print(f"{storage} {medium} R={R} fastest K >= {k_min} per step: K={k_auto}"
+                      f" ({ks_[k_auto]:.4f} ms/step)")
     return results
 
 

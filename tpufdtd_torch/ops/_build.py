@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -26,13 +28,17 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# name: (argument types, return type)
 _SIGNATURES = {
     # cur, prev, m (or null), target, nx, ny, nz, halo, radius, bf16_storage,
     # coeffs, stream
-    "tpufdtd_leapfrog_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tpufdtd_leapfrog_step": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     # uin, uout, w (or null), nx, ny, nz, halo, radius, k, isotropic,
-    # bf16_storage, xc, ty, tz, ythreads, coeffs, stream
-    "tpufdtd_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # bf16_storage, xc, ty, tz, threads, coeffs, stream
+    "tpufdtd_sweep": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    # radius, k, ty, tz, bf16_storage, w_stream -> the bytes of shared
+    # memory tpufdtd_sweep requests per block
+    "tpufdtd_sweep_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
 }
 
 _loaded: dict = {}
@@ -71,10 +77,10 @@ def library() -> ctypes.CDLL:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             log.write_text(_compile_and_link(nvcc_path(), Path(tmp), so))
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     _loaded["lib"] = lib
     _loaded["log"] = log.read_text() if log.exists() else ""
     return lib
@@ -93,20 +99,40 @@ def _wait(cmd, proc) -> str:
 
 def _compile_and_link(nvcc: str, tmp: Path, so: Path) -> str:
     """One nvcc per source, all running at once, then one link; returns
-    their output. The library appears at `so` only when all succeeded."""
+    their output, with a line "nvcc <source>: <seconds> s" per source (its
+    wall time from the common start). The library appears at `so` only
+    when all succeeded."""
     sources = sorted(CSRC.glob("*.cu"))
     objs = [str(tmp / f"{src.stem}.o") for src in sources]
-    jobs = []
+    start = time.monotonic()
+    jobs, results = [], {}
+
+    def wait(name, cmd, proc):
+        try:
+            results[name] = (_wait(cmd, proc), time.monotonic() - start)
+        except RuntimeError as e:
+            results[name] = (e, 0.0)
+
     for src, obj in zip(sources, objs):
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)]
-        jobs.append((cmd, _run(cmd)))
+        proc = _run(cmd)
+        thread = threading.Thread(target=wait, args=(src.name, cmd, proc))
+        thread.start()
+        jobs.append((proc, thread))
     try:
-        out = "".join(_wait(cmd, proc) for cmd, proc in jobs)
+        for _proc, thread in jobs:
+            thread.join()
     finally:
-        for _cmd, proc in jobs:
+        for proc, _thread in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    out = ""
+    for name in sorted(results):
+        text, secs = results[name]
+        if isinstance(text, RuntimeError):
+            raise text
+        out += text + f"nvcc {name}: {secs:.1f} s\n"
     cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp / so.name), *objs]
     out += _wait(cmd, _run(cmd))
     os.replace(tmp / so.name, so)
@@ -121,6 +147,8 @@ def build_log() -> str:
 
 
 def check(code: int, what: str) -> None:
+    if code >= 2000:
+        raise ValueError(f"{what}: depth K = {code - 2000} is not built into this radius")
     if code >= 1000:
         raise ValueError(f"{what}: radius {code - 1000} is not built into this mode of the kernel")
     if code != 0:

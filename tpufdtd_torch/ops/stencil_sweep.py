@@ -3,11 +3,13 @@
 Replaces the kernels of the fast two-level ring: tpufdtd/ops/stencil_sweep.py
 :sweep_fused (radius 1-3, its w and bf16 modes included), and
 tpufdtd/ops/stencil_pallas_z.py:packed_step (K = 1) and packed_fused2
-(radius 4, K = 2). The CUDA source is csrc/stencil_sweep.cuh (built by
-stencil_sweep.cu for f32 and stencil_sweep_bf16.cu for bf16): a 2.5-D
-x-sweep with temporal blocking in shared memory, radius 1-4 (orders 2-8).
-It is bound by device memory: one step alone moves 12 B per point in f32,
-K fused steps 16 B per point per K steps plus each block's halo.
+(radius 4, K = 2). The CUDA source is csrc/stencil_sweep.cuh (its C entry
+in stencil_sweep.cu, one translation unit per mode and radius range in
+stencil_sweep_<storage>_<medium>_r<radii>.cu): a 2.5-D x-sweep with
+temporal blocking, each thread holding its cells' x-neighbours in register
+rings, the input planes staged through 16-byte cp.async several planes
+ahead, radius 1-4 (orders 2-8) at K = 1..k_max(R). It is bound by device
+memory: K fused steps move 16 B per point in f32 plus each block's halo.
 
 Modes, at radius 1-3 as in the TPU sweep (radius 4 takes f32 and a scalar
 m only):
@@ -17,8 +19,8 @@ m only):
   * storage: U and out f32, or both bf16 (half the bytes); compute is f32
     throughout, and only the two output levels are rounded to bf16, once
     per K-block, so a bf16 K-block is not K bf16 steps.
-The shared-memory rings are f32 in every mode, so `smem_bytes`, `k_max`
-and the block shapes of `TILES` hold for all of them.
+`smem_bytes` depends on the storage dtype (the staging ring holds it);
+`cells_per_thread` and `k_max` hold for every mode.
 
 U = [u_{n-1}, u_n] in the reference layout, shape [2, nx+2H, ny+2H, nz+2H];
 the result [u_{n+K-1}, u_{n+K}] goes to a second buffer `out` (not in
@@ -47,42 +49,40 @@ from .stencil_step import STORAGE, coeff_values
 RADII = (1, 2, 3, 4)
 # radii of the w stream and of bf16 storage (the TPU sweep's, orders 2-6)
 MODE_RADII = (1, 2, 3)
-# Block shape per (radius R, fusion depth K): (XC, TY, TZ, YT) = the
-# x-planes one block sweeps, its (y, z) column (z is the contiguous axis),
-# and its 32 x YT threads along (z, y). The fastest shapes at 512^3 on an
-# H100 (harness/tile_probe.py; PERF.md).
+# Block shape per (radius R, fusion depth K): (XC, TY, TZ, NT) = the
+# x-planes one block sweeps, its (y, z) column (z is the contiguous axis)
+# and its threads, each owning up to cells_per_thread(R, K) cells of the
+# column's (TY + 2KR) x (TZ + 2KR) region.
 TILES = {
-    (1, 1): (128, 32, 128, 16), (1, 2): (256, 32, 128, 16),
-    (1, 3): (128, 32, 32, 8), (1, 4): (512, 32, 64, 16),
-    (2, 1): (256, 32, 128, 16), (2, 2): (512, 32, 64, 16),
-    (2, 3): (512, 32, 32, 8), (2, 4): (512, 32, 32, 8),
-    (3, 1): (512, 32, 64, 16), (3, 2): (512, 32, 32, 8),
-    (3, 3): (512, 16, 32, 8), (3, 4): (512, 16, 16, 8),
-    (4, 1): (512, 32, 64, 16), (4, 2): (512, 32, 32, 16),
-    (4, 3): (512, 16, 16, 8),
+    (1, 1): (256, 8, 128, 256), (1, 2): (512, 8, 64, 256),
+    (1, 3): (512, 32, 64, 256), (1, 4): (256, 24, 64, 256),
+    (2, 1): (256, 8, 128, 256), (2, 2): (256, 16, 32, 256),
+    (2, 3): (512, 32, 32, 256), (2, 4): (512, 16, 32, 256),
+    (3, 1): (256, 8, 64, 256), (3, 2): (256, 8, 24, 256),
+    (3, 3): (256, 16, 24, 256), (3, 4): (512, 8, 16, 256),
+    (4, 1): (512, 16, 32, 256), (4, 2): (256, 16, 40, 256),
+    (4, 3): (512, 8, 16, 256),
 }
 # Block shapes of the other modes where the probe found a shape at least
-# 3 % faster than TILES' at 512^3 on an H100 (harness/tile_probe.py;
-# PERF.md), per (storage dtype, medium): {(R, K): (XC, TY, TZ, YT)}.
+# 3 % faster than TILES' at 512^3 on an H100, or where TILES' needs more
+# shared memory than the mode has (the w stream's ring) (harness/
+# tile_probe.py; PERF.md), per (storage dtype, medium): {(R, K): (XC, TY,
+# TZ, NT)}.
 MODE_TILES = {
-    ("float32", "w"): {
-        (1, 1): (128, 16, 128, 16), (1, 2): (128, 16, 64, 8), (2, 1): (128, 16, 128, 8),
-        (2, 3): (512, 16, 32, 8), (2, 4): (512, 32, 32, 16), (3, 2): (512, 32, 32, 16),
-    },
-    ("bfloat16", "m"): {
-        (1, 1): (128, 32, 32, 8), (1, 2): (128, 32, 64, 16), (2, 1): (128, 32, 32, 8),
-        (2, 2): (128, 32, 32, 16), (2, 3): (512, 32, 32, 16), (2, 4): (512, 32, 32, 16),
-        (3, 1): (128, 32, 32, 8), (3, 2): (512, 32, 32, 16), (3, 3): (512, 16, 32, 16),
-        (3, 4): (512, 16, 16, 16),
-    },
-    ("bfloat16", "w"): {
-        (1, 1): (128, 8, 64, 4), (1, 2): (128, 32, 32, 8), (2, 1): (128, 16, 32, 4),
-        (2, 3): (512, 32, 32, 16), (2, 4): (512, 32, 32, 16), (3, 1): (128, 32, 32, 8),
-        (3, 2): (512, 32, 32, 16), (3, 3): (512, 16, 32, 16), (3, 4): (512, 16, 16, 16),
-    },
+    ("float32", "w"): {(1, 2): (256, 8, 64, 256), (1, 3): (256, 16, 32, 256),
+                       (1, 4): (256, 24, 16, 256)},
+    ("bfloat16", "m"): {(1, 1): (512, 32, 32, 256), (1, 2): (256, 24, 32, 256),
+                        (3, 1): (256, 24, 32, 256)},
+    ("bfloat16", "w"): {(1, 2): (256, 24, 32, 256), (1, 3): (512, 16, 32, 256),
+                        (1, 4): (256, 24, 16, 256), (3, 1): (256, 16, 48, 256)},
 }
 # Dynamic shared memory one block may use on sm_90 (227 KB).
 SMEM_LIMIT = 232448
+# csrc/stencil_sweep.cuh: planes of the staging ring, the most threads a
+# block may have, and the registers per thread the cells' rings may take.
+STAGES = 4
+MAX_THREADS = 256
+REG_OVERHEAD = 64
 
 # launches per (radius, K): counts["kernel"] of the CUDA kernel,
 # counts["plain"] of the plain version
@@ -99,23 +99,51 @@ def launches(route: str = "kernel") -> int:
     return sum(counts[route].values())
 
 
-def smem_bytes(radius: int, k: int, tile=None) -> int:
-    """Shared memory of one block: the f32 plane rings of levels u_{n-1} ..
-    u_{n+K-1} (csrc/stencil_sweep.cuh), each plane its (y, z) column plus a
-    K*R halo. The rings hold R+2 planes of u_{n-1} and 2R+2 of u_n (each
-    with one plane in flight) and 2R+1 of each of u_{n+1} .. u_{n+K-1}. The
-    same in every mode: w is read from device memory, and bf16 planes are
-    widened into the f32 rings."""
-    _xc, ty, tz, _yt = TILES[radius, k] if tile is None else tile
-    prev, cur, ring = radius + 2, 2 * radius + 2, 2 * radius + 1
+def min_blocks(radius: int, k: int) -> int:
+    """Blocks per SM the kernel's registers allow at (R, K): 2 (128
+    registers a thread) at K <= 2 where a cell's rings are short, else 1
+    (up to 255) (csrc/stencil_sweep.cuh:min_blocks)."""
+    return 2 if k <= 2 and k * (2 * radius + 1) <= 14 else 1
+
+
+def cells_per_thread(radius: int, k: int) -> int:
+    """The most cells of its region one thread owns: each keeps K rings of
+    2R+1 planes in registers (u_n .. u_{n+K-1}), three offsets and K
+    temporaries (csrc/stencil_sweep.cuh:cells)."""
+    regs = 128 if min_blocks(radius, k) == 2 else 240
+    return (regs - REG_OVERHEAD) // (k * (2 * radius + 1) + 3 + k)
+
+
+def smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
+               medium: str = "m") -> int:
+    """Dynamic shared memory of one block (csrc/stencil_sweep.cuh:smem, the
+    bytes the launch requests): staging rings of STAGES planes of u_n and
+    STAGES + R of u_{n-1} in the storage dtype, each row padded to a
+    16-byte multiple plus 16 bytes for its aligned superset, and two
+    buffers of one f32 centre plane per level u_n .. u_{n+K-1}; with the w
+    stream, a ring of STAGES + K*R f32 planes of w at the same row pitch.
+    Every plane is the column plus a K*R halo."""
+    _xc, ty, tz, _nt = TILES[radius, k] if tile is None else tile
+    esz = 2 if storage == "bfloat16" else 4
     g2 = 2 * k * radius
-    return 4 * (prev + cur + ring * (k - 1)) * (ty + g2) * (tz + g2)
+    py, pz, v = ty + g2, tz + g2, 16 // esz
+    sp = -(-pz // v) * v + v
+    w_ring = (STAGES + k * radius) * py * sp * 4 if medium == "w" else 0
+    return (2 * STAGES + radius) * py * sp * esz + w_ring + 2 * k * py * pz * 4
+
+
+def tile_fits(radius: int, k: int, tile, storage: str = "float32", medium: str = "m") -> bool:
+    """The block's region fits its threads' cells, its threads one block,
+    and its planes shared memory."""
+    _xc, ty, tz, nt = tile
+    g2 = 2 * k * radius
+    return (nt <= MAX_THREADS and (ty + g2) * (tz + g2) <= cells_per_thread(radius, k) * nt
+            and smem_bytes(radius, k, tile, storage, medium) <= SMEM_LIMIT)
 
 
 def k_max(radius: int) -> int:
-    """Deepest fusion at this radius with a tile whose block fits shared
-    memory."""
-    return max(k for r, k in TILES if r == radius and smem_bytes(r, k) <= SMEM_LIMIT)
+    """Deepest fusion at this radius with a tile that fits (at most 4)."""
+    return max(k for r, k in TILES if r == radius and tile_fits(r, k, TILES[r, k]))
 
 
 def tile_for(radius: int, k: int, storage: str = "float32", medium: str = "m") -> tuple:
@@ -243,15 +271,20 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
     returns out. U and out are f32 or bf16; `w` (f32, padded shape) selects
     the heterogeneous-medium mode, and m_val is then ignored. CPU tensors
     take the plain version; CUDA tensors launch the kernel, and a failed
-    launch raises. `tile` = (XC, TY, TZ, YT) overrides the block shape of
+    launch raises. `tile` = (XC, TY, TZ, NT) overrides the block shape of
     TILES, for tuning."""
     _check(U, out, grid, m_val, k_fuse, w)
     R = grid.radius
     key = mode_key(grid, k_fuse, U, w)
     tile = tile_for(*key) if tile is None else tuple(tile)
-    need = smem_bytes(R, k_fuse, tile)
+    need = smem_bytes(R, k_fuse, tile, key[2], key[3])
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse} needs {need} B of shared memory")
+    _xc, ty, tz, nt = tile
+    cells = cells_per_thread(R, k_fuse)
+    if (ty + 2 * k_fuse * R) * (tz + 2 * k_fuse * R) > cells * nt:
+        raise ValueError(f"tile {tile} at R={R}, K={k_fuse}: the region exceeds {cells} cells"
+                         " per thread")
     if U.device.type == "cpu":
         res = sweep_fused_ref(U, grid=grid, dt=dt, m_val=m_val, k_fuse=k_fuse, w=w)
         interior = (slice(None),) + grid.interior_slices()

@@ -20,10 +20,10 @@ Routing of the "cuda" backend (the JAX package's "pallas" choices):
     degraded while the correction cubes do not fit the interior, down to
     K = 1, which needs no cube (the role of the JAX package's packed_step).
   * a heterogeneous m (w mode) or bf16 storage at orders 2-6, t_fuse 0 or
-    >= 3: the fast ring on kernel B in that mode. K is K_AUTO[radius], the
-    cubes are propagated through the local medium, and K degrades down to
-    2 only: the JAX package's sweep runs these modes at K >= 2 and has no
-    K = 1 form of them, so below that it takes the exact ring, as here.
+    >= 3: the fast ring on kernel B in that mode at K = MODE_K = 2, the
+    cubes propagated through the local medium; the JAX package's sweep
+    runs these modes at K >= 2 and has no K = 1 form of them, so where
+    K = 2 does not fit it takes the exact ring, as here.
   * otherwise the exact ring on kernel A (per-point m at order 8 with a
     heterogeneous medium; bf16 at orders 8-12, or where the fast ring is
     not legal, as the JAX package's JnpEngine).
@@ -55,10 +55,13 @@ from .sources import (
     injection_cubes_upto,
 )
 
-# Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0, in
-# every mode of kernel B: the fastest K >= 2 per step at 512^3 on an H100
-# (harness/tile_probe.py; PERF.md).
-K_AUTO = {1: 2, 2: 2, 3: 2, 4: 2}
+# Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0: the
+# fastest K per step of kernel B's f32 scalar-m mode at 512^3 on an H100
+# (harness/tile_probe.py; PERF.md). The w and bf16 modes take MODE_K, their
+# fastest K >= 2 at every radius (the JAX package's sweep has no K = 1
+# form of them).
+K_AUTO = {1: 3, 2: 2, 3: 1, 4: 1}
+MODE_K = 2
 
 
 def resolve_device(device) -> torch.device:
@@ -195,7 +198,8 @@ class CudaEngine(_Engine):
         # auto mode degrades K while the correction cubes do not fit the
         # interior (deeper K spreads each deposit R*(K-1)+1 cells), down to
         # K = 1, which has no cube; the w and bf16 modes stop at K = 2
-        ks = [cfg.t_fuse] if explicit else range(min(K_AUTO[R], kmax), 0 if plain_mode else 1, -1)
+        k_auto = K_AUTO[R] if plain_mode else MODE_K
+        ks = [cfg.t_fuse] if explicit else range(min(k_auto, kmax), 0 if plain_mode else 1, -1)
         h = grid.halo
         m_core = None if self.m_val is not None else self.m_ref
         for k in ks:
