@@ -238,12 +238,24 @@ def test_bf16_paths_on_card_match_truth(dev, order, layered, kernel):
 
 
 def test_launch_failure_raises(dev):
+    from tpufdtd_torch.ops import _build
+
     g = tt.Grid3D(16, 16, 16)
     U = torch.zeros((2,) + g.padded_shape, device=dev)
+    out = U.clone()
     with pytest.raises(ValueError):  # beyond its threads' cells: refused before launch
-        B.sweep_fused(U, U.clone(), grid=g, dt=1e-3, m_val=1.5, k_fuse=2, tile=(64, 32, 32, 8))
-    with pytest.raises(RuntimeError):  # more threads than the kernel's bound: the launch fails
-        B.sweep_fused(U, U.clone(), grid=g, dt=1e-3, m_val=1.5, k_fuse=1, tile=(64, 8, 32, 1024))
+        B.sweep_fused(U, out, grid=g, dt=1e-3, m_val=1.5, k_fuse=2, tile=(64, 64, 32))
+    # a depth the library does not build: the C entry's code raises
+    code = _build.library().tpufdtd_sweep(
+        U.data_ptr(), out.data_ptr(), None, 16, 16, 16, g.halo, 2, 5, 1, 0, 64, 8, 32,
+        _build.coeff_array([0.0] * 16), torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(ValueError, match="depth K = 5"):
+        _build.check(code, "sweep_fused")
+    # more x-chunks than a grid may have blocks along z: the launch fails
+    gx = tt.Grid3D(65600, 8, 8)
+    Ux = torch.zeros((2,) + gx.padded_shape, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        B.sweep_fused(Ux, Ux.clone(), grid=gx, dt=1e-3, m_val=1.5, k_fuse=1, tile=(1, 8, 8))
 
 
 @pytest.mark.parametrize("radius,dtype", [(1, torch.float32), (2, torch.float32),
@@ -255,7 +267,7 @@ def test_kernel_b_k1_region_starts_off_16_bytes(dev, radius, dtype):
     lies off every 16-byte boundary in every column of blocks; each row is
     staged as its aligned superset."""
     g = tt.Grid3D(40, 24, 70, order=2 * radius)
-    _check_b(dev, g, 1, dtype, tile=(512, 8, 20, 256))
+    _check_b(dev, g, 1, dtype, tile=(512, 8, 20))
 
 
 @pytest.mark.parametrize("order,nz", [(2, 13), (2, 14), (2, 16), (6, 11), (6, 14), (6, 16)])
@@ -287,7 +299,10 @@ def test_kernel_b_nx_not_a_multiple_of_xc(dev, radius):
 
 
 def test_smem_bytes_is_what_the_launch_requests(dev):
-    """ops/stencil_sweep.smem_bytes states the launch's own expression."""
+    """ops/stencil_sweep.smem_bytes states the launch's own expression, and
+    cells_per_thread and min_blocks the kernel's register policy."""
+    import ctypes
+
     from tpufdtd_torch.ops import _build
 
     lib = _build.library()
@@ -298,3 +313,6 @@ def test_smem_bytes_is_what_the_launch_requests(dev):
                 got = lib.tpufdtd_sweep_smem(r, k, tile[1], tile[2], int(storage == "bfloat16"),
                                              int(medium == "w"))
                 assert got == want
+        policy = (ctypes.c_int * 2)()
+        lib.tpufdtd_sweep_policy(r, k, policy)
+        assert list(policy) == [B.cells_per_thread(r, k), B.min_blocks(r, k)]

@@ -134,14 +134,7 @@ def test_tile_probe_candidates_fit_shared_memory(k):
         assert tiles[0] == stencil_sweep.TILES[r, k] and len(set(tiles)) == len(tiles) > 1
         for tile in tiles:
             assert stencil_sweep.smem_bytes(r, k, tile) <= stencil_sweep.SMEM_LIMIT
-            assert stencil_sweep.tile_fits(r, k, tile) and tile[3] in tile_probe.NTS
-
-
-def test_kernel_digest_refuses_the_cpu():
-    from tpufdtd_torch.harness import kernel_digest
-
-    with pytest.raises(RuntimeError):
-        kernel_digest.digests(8, device="cpu")
+            assert stencil_sweep.tile_fits(r, k, tile) and len(tile) == 3
 
 
 def test_tile_probe_refuses_the_cpu():

@@ -175,13 +175,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_tiles_fit_shared_memory():
     """Every (R, K) of TILES fits in every storage dtype: its region within
-    its threads' cells, its threads within one block, its staging rings
-    (2 STAGES + R planes in the storage dtype, rows padded to 16 B plus
-    16 B; STAGES + KR f32 planes of w) and 2K f32 centre planes within
-    227 KB (csrc/stencil_sweep.cuh:smem); each radius has K = 1..k_max(R),
-    and one level deeper fits no 8 x 8 column in one block."""
+    its threads' cells, its staging rings (2 STAGES + R planes in the
+    storage dtype, rows padded to 16 B plus 16 B; STAGES + KR f32 planes of
+    w) and 2K f32 centre planes within 227 KB (csrc/stencil_sweep.cuh:smem);
+    each radius has K = 1..k_max(R), the depths with R * K <= 8
+    (csrc/stencil_sweep.cuh:built)."""
     assert {r for r, _ in sw.TILES} == set(sw.RADII) == {1, 2, 3, 4}
     for (r, k), tile in sw.TILES.items():
+        assert len(tile) == 3
         g2 = 2 * k * r
         py, pz = tile[1] + g2, tile[2] + g2
         for storage, esz in (("float32", 4), ("bfloat16", 2)):
@@ -192,12 +193,12 @@ def test_tiles_fit_shared_memory():
             assert sw.smem_bytes(r, k, tile, storage) == staged + 4 * 2 * k * py * pz
             w_ring = 4 * (sw.STAGES + k * r) * py * sp
             assert sw.smem_bytes(r, k, tile, storage, "w") == staged + w_ring + 4 * 2 * k * py * pz
-        assert py * pz <= sw.cells_per_thread(r, k) * tile[3] and tile[3] <= sw.MAX_THREADS
+        assert py * pz <= sw.cells_per_thread(r, k) * sw.THREADS
     for r in sw.RADII:
         kmax = sw.k_max(r)
         assert sorted(k for rr, k in sw.TILES if rr == r) == list(range(1, kmax + 1))
-        assert kmax == 4 or not sw.tile_fits(r, kmax + 1, (512, 8, 8, sw.MAX_THREADS))
-    assert sw.k_max(2) == 4 and sw.k_max(4) == 3
+        assert kmax == max(k for k in range(1, 5) if r * k <= 8)
+    assert [sw.k_max(r) for r in sw.RADII] == [4, 4, 2, 2]
     assert [sw.cells_per_thread(2, k) for k in (1, 2, 3, 4)] == [7, 4, 8, 6]
     assert [sw.min_blocks(2, k) for k in (1, 2, 3, 4)] == [2, 2, 1, 1]
     assert sw.min_blocks(3, 2) == 2 and sw.min_blocks(4, 2) == 1
@@ -217,9 +218,23 @@ def test_tiles_fit_shared_memory():
     U = torch.zeros((2,) + g.padded_shape)
     with pytest.raises(ValueError, match="shared memory"):
         sw.sweep_fused(U, U.clone(), grid=g, dt=0.001, m_val=1.5, k_fuse=2,
-                       tile=(64, 128, 128, 256))
+                       tile=(64, 128, 128))
     with pytest.raises(ValueError, match="cells per thread"):
-        sw.sweep_fused(U, U.clone(), grid=g, dt=0.001, m_val=1.5, k_fuse=2, tile=(64, 32, 32, 8))
+        sw.sweep_fused(U, U.clone(), grid=g, dt=0.001, m_val=1.5, k_fuse=2, tile=(64, 64, 32))
+
+
+@pytest.mark.parametrize("radius,k", sorted(sw.TILES))
+def test_register_rings_fit_the_thread_budget(radius, k):
+    """Per built (R, K): a cell's K rings of 2R+1 registers, three offsets
+    and K temporaries, times cells_per_thread, stay within the registers a
+    thread may take beside REG_OVERHEAD (128 at two blocks per SM, 240 at
+    one), and the cells of THREADS threads hold an 8 x 8 column with its
+    K*R halo."""
+    per_cell = k * (2 * radius + 1) + 3 + k
+    budget = (128 if sw.min_blocks(radius, k) == 2 else 240) - sw.REG_OVERHEAD
+    cells = sw.cells_per_thread(radius, k)
+    assert cells >= 1 and cells * per_cell <= budget < (cells + 1) * per_cell
+    assert (8 + 2 * k * radius) ** 2 <= cells * sw.THREADS
 
 
 def test_gpu_shapes_span_several_x_chunks():

@@ -13,6 +13,7 @@ import torch
 import tpufdtd as tf
 import tpufdtd_torch as tt
 from tpufdtd_torch import stepper
+from tpufdtd_torch.ops import stencil_sweep
 from conftest import make_correctness_ic, rel_l2
 
 TOL = 2e-6
@@ -358,9 +359,11 @@ def test_order8_fast_ring_matches_jax_packed(t_fuse):
 
 
 def test_order8_deepest_k_correction_cubes():
-    """Order 8 at its deepest K, k_max(4) = 3, with a source: the correction
-    cubes spread R*(K-1) = 8 cells around the deposit."""
+    """Order 8 at its deepest K, k_max(4) = 2, with a source: the correction
+    cubes spread R*(K-1) = 4 cells around the deposit."""
+    k = stencil_sweep.k_max(4)
+    assert k == 2
     g, _ = _grids(24, 24, 24, hx=1.0, hy=1.0, hz=1.0, order=8)
     coords = np.array([[11.3, 11.6, 12.2]], np.float32)
-    _, _, (p, c), (tp, tc) = _run_fast(g, 7, coords, cfg_kw={"t_fuse": 3}, expect_k=3)
+    _, _, (p, c), (tp, tc) = _run_fast(g, 7, coords, cfg_kw={"t_fuse": k}, expect_k=k)
     assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL

@@ -53,8 +53,8 @@
 // them. Each row is copied as its aligned superset and the extra columns
 // are never read. Shared memory (smem(); ops/stencil_sweep.py:smem_bytes)
 // is 25-200 KB; the registers bound the column: at K <= 2 two blocks of
-// 256 threads share an SM (128 registers each, min_blocks), deeper K takes
-// one block whose threads hold more cells in up to 255 registers.
+// THREADS = 256 share an SM (128 registers each, min_blocks), deeper K
+// takes one block whose threads hold more cells in up to 255 registers.
 //
 // Not in place, unlike the TPU kernel: Hopper blocks run in parallel in no
 // order, and one block's halo is another's output, so the result goes to a
@@ -76,7 +76,7 @@
 namespace sweep {
 
 constexpr int STAGES = 4;         // staging ring of u_n planes (STAGES-1 in flight)
-constexpr int MAX_THREADS = 256;  // threads per block (__launch_bounds__)
+constexpr int THREADS = 256;      // threads per block
 constexpr int REG_OVERHEAD = 64;  // registers per thread besides the cells'
 
 // Blocks per SM the registers must allow at (R, K): two at K <= 2 where a
@@ -88,16 +88,17 @@ __host__ __device__ constexpr int min_blocks(int R, int K) {
 }
 
 // Cells per thread at (R, K): each takes K rings of 2R+1 registers, three
-// offsets and K temporaries. Mirrored by
-// ops/stencil_sweep.py:cells_per_thread.
+// offsets and K temporaries.
 __host__ __device__ constexpr int cells(int R, int K) {
   return ((min_blocks(R, K) == 2 ? 128 : 240) - REG_OVERHEAD) / (K * (2 * R + 1) + 3 + K);
 }
 
-// The (R, K) built: a column of at least 8 x 8 fits the cells of 256
-// threads only while R * K <= 12 (ops/stencil_sweep.py:k_max).
+// The (R, K) built: R * K <= 8, so K <= 4 at R <= 2 and K <= 2 at R = 3-4
+// (ops/stencil_sweep.py:k_max). Deeper, the rings leave a column that is
+// mostly halo: R = 3 at K = 3-4 and R = 4 at K = 3 ran 3-11 times slower
+// per step than K = 1 at 512^3.
 __host__ __device__ constexpr bool built(int R, int K) {
-  return R >= 1 && R <= 4 && K >= 1 && K <= 4 && R * K <= 12;
+  return R >= 1 && R <= 4 && K >= 1 && K <= 4 && R * K <= 8;
 }
 
 // Dynamic shared memory of one block; ops/stencil_sweep.py:smem_bytes
@@ -168,6 +169,8 @@ __device__ __forceinline__ void copy_rows(T* dst, int dstride, const T* __restri
   // i / nch by a float reciprocal: exact while n < 2^12 nch, far beyond
   // any region
   const float inv = 1.0f / (float)nch;
+  // blockDim.x (== THREADS): a run-time stride, here and for the cells, is
+  // what ptxas fits without spills in every mode
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = (int)(((float)i + 0.5f) * inv), ch = i - r * nch;
     T* d = dst + r * dstride + ch * VE;
@@ -221,7 +224,7 @@ __device__ __forceinline__ void onion(int idx, int ty, int tz, int& row, int& co
 }
 
 template <int R, int K, bool ISO, typename T, bool WM>
-__global__ void __launch_bounds__(MAX_THREADS, min_blocks(R, K))
+__global__ void __launch_bounds__(THREADS, min_blocks(R, K))
 kernel(const T* __restrict__ uin, T* __restrict__ uout, const float* __restrict__ wgt,
        Geom g, Coeffs c) {
   constexpr int L = 2 * R + 1, G = K * R, C = cells(R, K);
@@ -404,10 +407,10 @@ int copy_bytes(const void* p, int nzp) {
 }
 
 template <int R, int K, bool ISO, typename T, bool WM>
-int launch_k(const T* uin, T* uout, const float* w, Geom g, int threads, const Coeffs& c,
+int launch_k(const T* uin, T* uout, const float* w, Geom g, const Coeffs& c,
              cudaStream_t stream) {
   const int g2 = 2 * K * R;
-  if ((g.ty + g2) * (g.tz + g2) > cells(R, K) * threads) return (int)cudaErrorInvalidValue;
+  if ((g.ty + g2) * (g.tz + g2) > cells(R, K) * THREADS) return (int)cudaErrorInvalidValue;
   const size_t bytes = smem(R, K, g.ty, g.tz, (int)sizeof(T), WM);
   cudaError_t e = cudaFuncSetAttribute(kernel<R, K, ISO, T, WM>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -416,29 +419,29 @@ int launch_k(const T* uin, T* uout, const float* w, Geom g, int threads, const C
   // w's chunks start at staging columns aligned to u's copies: no wider
   g.vbw = WM ? min(copy_bytes<float>(w, g.nz + 2 * g.halo), 4 * max(1, g.vb / (int)sizeof(T))) : 0;
   const dim3 grid((g.nz + g.tz - 1) / g.tz, (g.ny + g.ty - 1) / g.ty, (g.nx + g.xc - 1) / g.xc);
-  kernel<R, K, ISO, T, WM><<<grid, threads, bytes, stream>>>(uin, uout, w, g, c);
+  kernel<R, K, ISO, T, WM><<<grid, THREADS, bytes, stream>>>(uin, uout, w, g, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int R, int K, typename T, bool WM>
-int launch_iso(const T* uin, T* uout, const float* w, Geom g, int threads, bool iso,
+int launch_iso(const T* uin, T* uout, const float* w, Geom g, bool iso,
                const Coeffs& c, cudaStream_t s) {
   if constexpr (built(R, K)) {
-    return iso ? launch_k<R, K, true, T, WM>(uin, uout, w, g, threads, c, s)
-               : launch_k<R, K, false, T, WM>(uin, uout, w, g, threads, c, s);
+    return iso ? launch_k<R, K, true, T, WM>(uin, uout, w, g, c, s)
+               : launch_k<R, K, false, T, WM>(uin, uout, w, g, c, s);
   } else {
     return 2000 + K;
   }
 }
 
 template <int R, typename T, bool WM>
-int launch_r(const T* uin, T* uout, const float* w, Geom g, int k, int threads, bool iso,
+int launch_r(const T* uin, T* uout, const float* w, Geom g, int k, bool iso,
              const Coeffs& c, cudaStream_t s) {
   switch (k) {
-    case 1: return launch_iso<R, 1, T, WM>(uin, uout, w, g, threads, iso, c, s);
-    case 2: return launch_iso<R, 2, T, WM>(uin, uout, w, g, threads, iso, c, s);
-    case 3: return launch_iso<R, 3, T, WM>(uin, uout, w, g, threads, iso, c, s);
-    case 4: return launch_iso<R, 4, T, WM>(uin, uout, w, g, threads, iso, c, s);
+    case 1: return launch_iso<R, 1, T, WM>(uin, uout, w, g, iso, c, s);
+    case 2: return launch_iso<R, 2, T, WM>(uin, uout, w, g, iso, c, s);
+    case 3: return launch_iso<R, 3, T, WM>(uin, uout, w, g, iso, c, s);
+    case 4: return launch_iso<R, 4, T, WM>(uin, uout, w, g, iso, c, s);
     default: return 2000 + k;
   }
 }
@@ -446,11 +449,11 @@ int launch_r(const T* uin, T* uout, const float* w, Geom g, int k, int threads, 
 // Kernel B in one mode (storage T, medium WM) at radius RLO..RHI; 1000 +
 // radius for a radius not built here, 2000 + K for a depth.
 template <typename T, bool WM, int RLO, int RHI>
-int launch_mode(const T* uin, T* uout, const float* w, Geom g, int radius, int k, int threads,
-                bool iso, const Coeffs& c, cudaStream_t s) {
+int launch_mode(const T* uin, T* uout, const float* w, Geom g, int radius, int k, bool iso,
+                const Coeffs& c, cudaStream_t s) {
   if constexpr (RLO <= RHI) {
-    if (radius == RLO) return launch_r<RLO, T, WM>(uin, uout, w, g, k, threads, iso, c, s);
-    return launch_mode<T, WM, RLO + 1, RHI>(uin, uout, w, g, radius, k, threads, iso, c, s);
+    if (radius == RLO) return launch_r<RLO, T, WM>(uin, uout, w, g, k, iso, c, s);
+    return launch_mode<T, WM, RLO + 1, RHI>(uin, uout, w, g, radius, k, iso, c, s);
   } else {
     return 1000 + radius;
   }
@@ -463,7 +466,7 @@ int launch_mode(const T* uin, T* uout, const float* w, Geom g, int radius, int k
 // arguments as tpufdtd_sweep (stencil_sweep.cu).
 #define TPUFDTD_SWEEP_MODE(name, T)                                                        \
   int name(const T* uin, T* uout, const float* w, sweep::Geom g, int radius, int k,        \
-           int threads, bool iso, const Coeffs& c, cudaStream_t s)
+           bool iso, const Coeffs& c, cudaStream_t s)
 TPUFDTD_SWEEP_MODE(sweep_f32_m_r12, float);
 TPUFDTD_SWEEP_MODE(sweep_f32_m_r34, float);
 TPUFDTD_SWEEP_MODE(sweep_f32_w_r12, float);

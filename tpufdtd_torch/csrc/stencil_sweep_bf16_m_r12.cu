@@ -5,5 +5,5 @@
 #include "stencil_sweep.cuh"
 
 TPUFDTD_SWEEP_MODE(sweep_bf16_m_r12, bf16) {
-  return sweep::launch_mode<bf16, false, 1, 2>(uin, uout, w, g, radius, k, threads, iso, c, s);
+  return sweep::launch_mode<bf16, false, 1, 2>(uin, uout, w, g, radius, k, iso, c, s);
 }

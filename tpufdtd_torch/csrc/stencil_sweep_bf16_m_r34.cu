@@ -5,5 +5,5 @@
 #include "stencil_sweep.cuh"
 
 TPUFDTD_SWEEP_MODE(sweep_bf16_m_r34, bf16) {
-  return sweep::launch_mode<bf16, false, 3, 3>(uin, uout, w, g, radius, k, threads, iso, c, s);
+  return sweep::launch_mode<bf16, false, 3, 3>(uin, uout, w, g, radius, k, iso, c, s);
 }

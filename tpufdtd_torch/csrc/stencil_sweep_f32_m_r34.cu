@@ -5,5 +5,5 @@
 #include "stencil_sweep.cuh"
 
 TPUFDTD_SWEEP_MODE(sweep_f32_m_r34, float) {
-  return sweep::launch_mode<float, false, 3, 4>(uin, uout, w, g, radius, k, threads, iso, c, s);
+  return sweep::launch_mode<float, false, 3, 4>(uin, uout, w, g, radius, k, iso, c, s);
 }

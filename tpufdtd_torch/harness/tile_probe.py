@@ -2,7 +2,7 @@
 
 Times `sweep_fused` at n^3 in one mode (storage dtype, and a scalar m or
 the w stream) for each stencil radius R and fusion depth K over a grid of
-block shapes (XC, TY, TZ, NT) that fit (stencil_sweep.tile_fits), with
+block shapes (XC, TY, TZ) that fit (stencil_sweep.tile_fits), with
 CUDA events, and prints each shape's ms per call and ms per step, the fastest shape per
 (R, K) and the one the kernel takes (stencil_sweep.tile_for), then the
 fastest K per step of each radius (stepper.K_AUTO, from the f32 scalar-m
@@ -31,20 +31,19 @@ from ..stepper import resolve_device
 XCS = (256, 512)
 TYS = (8, 16, 24, 32, 40, 48)
 TZS = (8, 16, 24, 32, 40, 48, 64, 96, 128)
-NTS = (256,)
 
 
 def candidates(radius: int, k: int, first=None, storage: str = "float32",
                medium: str = "m") -> list:
-    """Block shapes for (radius, k) of 256 threads that fit
-    (stencil_sweep.tile_fits) and give at least half of their threads'
-    cells work; `first` (default TILES[radius, k]) comes first."""
+    """Block shapes for (radius, k) that fit (stencil_sweep.tile_fits) and
+    give at least half of their threads' cells work; `first` (default
+    TILES[radius, k]) comes first."""
     out = [stencil_sweep.TILES[radius, k] if first is None else first]
     g2 = 2 * k * radius
-    cells = stencil_sweep.cells_per_thread(radius, k)
-    for tile in itertools.product(XCS, TYS, TZS, NTS):
-        _xc, ty, tz, nt = tile
-        if (2 * (ty + g2) * (tz + g2) > cells * nt and tile not in out
+    cells = stencil_sweep.cells_per_thread(radius, k) * stencil_sweep.THREADS
+    for tile in itertools.product(XCS, TYS, TZS):
+        _xc, ty, tz = tile
+        if (2 * (ty + g2) * (tz + g2) > cells and tile not in out
                 and stencil_sweep.tile_fits(radius, k, tile, storage, medium)):
             out.append(tile)
     return out

@@ -34,11 +34,13 @@ _SIGNATURES = {
     # coeffs, stream
     "tpufdtd_leapfrog_step": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     # uin, uout, w (or null), nx, ny, nz, halo, radius, k, isotropic,
-    # bf16_storage, xc, ty, tz, threads, coeffs, stream
-    "tpufdtd_sweep": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    # bf16_storage, xc, ty, tz, coeffs, stream
+    "tpufdtd_sweep": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     # radius, k, ty, tz, bf16_storage, w_stream -> the bytes of shared
     # memory tpufdtd_sweep requests per block
     "tpufdtd_sweep_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
+    # radius, k, out[2] <- cells per thread, blocks per SM
+    "tpufdtd_sweep_policy": ([_I, _I, ctypes.POINTER(_I)], None),
 }
 
 _loaded: dict = {}

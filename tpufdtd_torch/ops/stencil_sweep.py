@@ -49,39 +49,36 @@ from .stencil_step import STORAGE, coeff_values
 RADII = (1, 2, 3, 4)
 # radii of the w stream and of bf16 storage (the TPU sweep's, orders 2-6)
 MODE_RADII = (1, 2, 3)
-# Block shape per (radius R, fusion depth K): (XC, TY, TZ, NT) = the
-# x-planes one block sweeps, its (y, z) column (z is the contiguous axis)
-# and its threads, each owning up to cells_per_thread(R, K) cells of the
+# Block shape per (radius R, fusion depth K): (XC, TY, TZ) = the x-planes
+# one block sweeps and its (y, z) column (z is the contiguous axis); each of
+# its THREADS threads owns up to cells_per_thread(R, K) cells of the
 # column's (TY + 2KR) x (TZ + 2KR) region.
 TILES = {
-    (1, 1): (256, 8, 128, 256), (1, 2): (512, 8, 64, 256),
-    (1, 3): (512, 32, 64, 256), (1, 4): (256, 24, 64, 256),
-    (2, 1): (256, 8, 128, 256), (2, 2): (256, 16, 32, 256),
-    (2, 3): (512, 32, 32, 256), (2, 4): (512, 16, 32, 256),
-    (3, 1): (256, 8, 64, 256), (3, 2): (256, 8, 24, 256),
-    (3, 3): (256, 16, 24, 256), (3, 4): (512, 8, 16, 256),
-    (4, 1): (512, 16, 32, 256), (4, 2): (256, 16, 40, 256),
-    (4, 3): (512, 8, 16, 256),
+    (1, 1): (256, 8, 128), (1, 2): (512, 8, 64),
+    (1, 3): (512, 32, 64), (1, 4): (256, 24, 64),
+    (2, 1): (256, 8, 128), (2, 2): (256, 16, 32),
+    (2, 3): (512, 32, 32), (2, 4): (512, 16, 32),
+    (3, 1): (256, 8, 64), (3, 2): (256, 8, 24),
+    (4, 1): (512, 16, 32), (4, 2): (256, 16, 40),
 }
 # Block shapes of the other modes where the probe found a shape at least
 # 3 % faster than TILES' at 512^3 on an H100, or where TILES' needs more
 # shared memory than the mode has (the w stream's ring) (harness/
 # tile_probe.py; PERF.md), per (storage dtype, medium): {(R, K): (XC, TY,
-# TZ, NT)}.
+# TZ)}.
 MODE_TILES = {
-    ("float32", "w"): {(1, 2): (256, 8, 64, 256), (1, 3): (256, 16, 32, 256),
-                       (1, 4): (256, 24, 16, 256)},
-    ("bfloat16", "m"): {(1, 1): (512, 32, 32, 256), (1, 2): (256, 24, 32, 256),
-                        (3, 1): (256, 24, 32, 256)},
-    ("bfloat16", "w"): {(1, 2): (256, 24, 32, 256), (1, 3): (512, 16, 32, 256),
-                        (1, 4): (256, 24, 16, 256), (3, 1): (256, 16, 48, 256)},
+    ("float32", "w"): {(1, 2): (256, 8, 64), (1, 3): (256, 16, 32), (1, 4): (256, 24, 16)},
+    ("bfloat16", "m"): {(1, 1): (512, 32, 32), (1, 2): (256, 24, 32), (3, 1): (256, 24, 32)},
+    ("bfloat16", "w"): {(1, 2): (256, 24, 32), (1, 3): (512, 16, 32), (1, 4): (256, 24, 16),
+                        (3, 1): (256, 16, 48)},
 }
 # Dynamic shared memory one block may use on sm_90 (227 KB).
 SMEM_LIMIT = 232448
-# csrc/stencil_sweep.cuh: planes of the staging ring, the most threads a
-# block may have, and the registers per thread the cells' rings may take.
+# csrc/stencil_sweep.cuh: planes of u_n's staging ring (STAGES - 1 in
+# flight), the threads of a block, and the registers per thread besides the
+# cells' rings.
 STAGES = 4
-MAX_THREADS = 256
+THREADS = 256
 REG_OVERHEAD = 64
 
 # launches per (radius, K): counts["kernel"] of the CUDA kernel,
@@ -123,7 +120,7 @@ def smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
     buffers of one f32 centre plane per level u_n .. u_{n+K-1}; with the w
     stream, a ring of STAGES + K*R f32 planes of w at the same row pitch.
     Every plane is the column plus a K*R halo."""
-    _xc, ty, tz, _nt = TILES[radius, k] if tile is None else tile
+    _xc, ty, tz = TILES[radius, k] if tile is None else tile
     esz = 2 if storage == "bfloat16" else 4
     g2 = 2 * k * radius
     py, pz, v = ty + g2, tz + g2, 16 // esz
@@ -133,16 +130,17 @@ def smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
 
 
 def tile_fits(radius: int, k: int, tile, storage: str = "float32", medium: str = "m") -> bool:
-    """The block's region fits its threads' cells, its threads one block,
-    and its planes shared memory."""
-    _xc, ty, tz, nt = tile
+    """The block's region fits its threads' cells, and its planes shared
+    memory."""
+    _xc, ty, tz = tile
     g2 = 2 * k * radius
-    return (nt <= MAX_THREADS and (ty + g2) * (tz + g2) <= cells_per_thread(radius, k) * nt
+    return ((ty + g2) * (tz + g2) <= cells_per_thread(radius, k) * THREADS
             and smem_bytes(radius, k, tile, storage, medium) <= SMEM_LIMIT)
 
 
 def k_max(radius: int) -> int:
-    """Deepest fusion at this radius with a tile that fits (at most 4)."""
+    """Deepest fusion built at this radius: 4 at R <= 2, 2 at R = 3-4
+    (R * K <= 8, csrc/stencil_sweep.cuh:built)."""
     return max(k for r, k in TILES if r == radius and tile_fits(r, k, TILES[r, k]))
 
 
@@ -271,7 +269,7 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
     returns out. U and out are f32 or bf16; `w` (f32, padded shape) selects
     the heterogeneous-medium mode, and m_val is then ignored. CPU tensors
     take the plain version; CUDA tensors launch the kernel, and a failed
-    launch raises. `tile` = (XC, TY, TZ, NT) overrides the block shape of
+    launch raises. `tile` = (XC, TY, TZ) overrides the block shape of
     TILES, for tuning."""
     _check(U, out, grid, m_val, k_fuse, w)
     R = grid.radius
@@ -280,9 +278,9 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
     need = smem_bytes(R, k_fuse, tile, key[2], key[3])
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse} needs {need} B of shared memory")
-    _xc, ty, tz, nt = tile
+    _xc, ty, tz = tile
     cells = cells_per_thread(R, k_fuse)
-    if (ty + 2 * k_fuse * R) * (tz + 2 * k_fuse * R) > cells * nt:
+    if (ty + 2 * k_fuse * R) * (tz + 2 * k_fuse * R) > cells * THREADS:
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse}: the region exceeds {cells} cells"
                          " per thread")
     if U.device.type == "cpu":
