@@ -35,12 +35,24 @@ exits non-zero without a result line:
      per-point m);
   10. bf16 paths at 512^3 x 50: order 4 uniform (kernel B, bf16), order 4
      layered (kernel B, bf16 + w), order 12 uniform (kernel A, bf16), each
-     against the f64 truth (< 5e-2) and the f32 run of the same path.
+     against the f64 truth (< 5e-2) and the f32 run of the same path;
+  11. kernel B with frozen margins (sweep_fused's frozen_lo/hi/ylo/yhi, the
+     sharded sweep's edge shards) against its plain version at radius 1-2,
+     K = 1-3, in every mode, margins on x and y, frozen cells bitwise u_n;
+     at the shard shapes of phase 12, timed there;
+  12. sharded paths at 512^3 x 50, four shards on this one card through
+     tpufdtd_torch.parallel (every exchange and freeze case; no scaling
+     figure): the sharded sweep over 4 x-shards at order 4 (the default
+     source straddles shards 0 | 1), over 2 x 2 shards, on the layered
+     medium (w) and in bf16, and the per-step engine at order 8 on kernel A;
+     each against the single-device run of its path from phases 6, 7, 9 and
+     10 and that run's f64 truth, with launches and ms/step.
 Then the JSON line of the kernels (one entry per TPU kernel replaced), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Exits 1
 without a CUDA device.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -270,6 +282,33 @@ def phase_kernel_a_order12(tt, dev):
                       "bound_by": by}
         del m
     return out
+
+
+def phase_kernel_a_shard(tt, dev):
+    """Kernel A in the mode and at the shape the sharded per-step path
+    launches it (order 8, f32, scalar m, one shard of four of 512^3:
+    nx = 128), against its plain version, then timed."""
+    import torch
+    from tpufdtd_torch.ops import stencil_step as A
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grid = tt.Grid3D(MAIN_N // 4, MAIN_N, MAIN_N, order=8)
+    cur, prev, target = (torch.randn(grid.padded_shape, generator=gen, device=dev)
+                         for _ in range(3))
+    got = A.leapfrog_step(cur, prev, 1.5, target.clone(), grid=grid, dt=CHECK_DT)
+    want = A.leapfrog_step_ref(cur, prev, 1.5, target.clone(), grid=grid, dt=CHECK_DT)
+    torch.cuda.synchronize()
+    shape = "x".join(str(n) for n in (grid.nx, grid.ny, grid.nz))
+    err = compare(f"A {shape} order 8 m scalar", got, want, 2 * cur - prev, target,
+                  interior_mask(grid, dev))
+    del got, want
+    ms = cuda_ms(lambda: A.leapfrog_step(cur, prev, 1.5, target, grid=grid, dt=1e-3), 20)
+    plain = cuda_ms(lambda: A.leapfrog_step_ref(cur, prev, 1.5, target, grid=grid, dt=1e-3), 3)
+    bms, by = bound_a(grid, False)
+    print(f"  A at {shape} order 8 m scalar (a shard of the sharded per-step path): kernel"
+          f" {ms:.4f} ms/step, plain {plain:.4f} ms/step, bound {bms:.4f} ms ({by})")
+    return shape, {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                   "bound_by": by}
 
 
 def _fast_pair(grid, gen, dev, storage="float32"):
@@ -544,9 +583,8 @@ def phase_main(tt, dev, smi):
     print(f"  {n}^3 x 50 u_N: rel-L2 {l2:.3e} vs f64 truth, max |u| {mx:.4e}")
     if not l2 < GATE_TOL:
         raise AssertionError(f"main-path rel-L2 {l2} >= {GATE_TOL}")
-    del c, c_true
-
-    report_times(tt, dev, smi, sim, secs, src)
+    ms = report_times(tt, dev, smi, sim, secs, src)
+    SINGLE["order 4"] = {"c": c, "truth": c_true, "ms": ms}
     return b
 
 
@@ -603,11 +641,12 @@ FUSED2_LAUNCHES = ([r"B R=4 K=[12] float32 m"], [r"B R=4 K=2 float32 m", r"B R=4
 
 
 def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="float32",
-               tol=GATE_TOL, plain=True, f32_twin=False, t_fuse=0):
+               tol=GATE_TOL, plain=True, f32_twin=False, t_fuse=0, keep=None):
     """Phase 6's run at another order, medium (the layered medium when
     `layered`), storage dtype or fusion depth (t_fuse > 0): launches,
     levels, rel-L2 against the f64 truth (< tol) and times; with
-    `f32_twin`, also the rel-L2 against the f32 run of the same path.
+    `f32_twin`, also the rel-L2 against the f32 run of the same path. With
+    `keep`, u_N, the truth and ms/step stay in SINGLE[keep] for phase 12.
     Returns (launches per mode, cuda ms/step)."""
     from tpufdtd_torch.harness import media
 
@@ -634,7 +673,6 @@ def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="
         raise AssertionError(f"order {order}{label} field: max {mx}, nan {nan}")
     _, c_true, _ = tt.truth_run_ring(u0, u0, m, sim.grid, 0.001, nsteps, src, coords, device=dev)
     l2 = rel_l2(c, c_true)
-    del c_true
     twin = ""
     if f32_twin:
         sim32 = tt.Simulator(sim.grid, tt.SimConfig(dt=0.001, nsteps=nsteps), m, coords,
@@ -646,14 +684,16 @@ def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="
           f" max |u| {mx:.4e}, {want_levels} levels")
     if not l2 < tol:
         raise AssertionError(f"order {order}{label} rel-L2 {l2} >= {tol}")
-    del c
     ms = report_times(tt, dev, smi, sim, secs, src, plain=plain, label=label)
+    if keep:
+        SINGLE[keep] = {"c": c, "truth": c_true, "ms": ms}
     return modes, ms
 
 
 def phase_high_order(tt, dev, smi, order):
     """Phase 6's run at a higher order. Returns the launches per mode."""
-    return phase_path(tt, dev, smi, order, *HIGH_ORDER_LAUNCHES[order])[0]
+    return phase_path(tt, dev, smi, order, *HIGH_ORDER_LAUNCHES[order],
+                      keep=f"order {order}" if order == 8 else None)[0]
 
 
 def phase_layered_gate(tt, dev, order):
@@ -696,8 +736,256 @@ BF16_PATHS = {"order 4": (4, False, [r"B R=2 K=\d bfloat16 m"]),
               "order 12": (12, False, [r"A R=6 bfloat16 scalar"])}
 
 
+# Phase 11: kernel B with frozen margins (the sharded sweep's edge shards)
+FROZEN_KEYS = ("frozen_lo", "frozen_hi", "frozen_ylo", "frozen_yhi")
+FROZEN_MODE = f"frozen margins R=2,K=2, x edge shard of 4 at {MAIN_N}^3"
+FROZEN_LAUNCHES = {}  # phase 12: kernel-B launches with a margin, per sharded path
+SINGLE = {}  # u_N, f64 truth and ms/step of the single-device paths phase 12 compares with
+# phase 12: name -> (order, 2-D mesh shape or None, layered, storage, single-device path,
+# launches allowed, launches needed, rel-L2 bound against the single-device run). The
+# kernels give the same values per cell; the source correction groups its adds
+# otherwise: one scatter-add of all of a block's entries, each rounded to the level's
+# dtype, against the single device's corner add and then one add per cube, each rounded.
+# In f32 that is association (DEVIATIONS.md:31-35). In bf16 the two round differently
+# (3.05e-2 apart on the card, PERF.md), so the bf16 sweep is held to the single-device
+# bf16 sweep bitwise without sources (BF16_BITWISE_STEPS steps from random levels), and
+# with the source to the f32 sharded run at SHARD_TOL_BF16_F32, twice the 5.0e-3 the
+# card read between the bf16 sharded run and the truth. The per-step engine is bitwise
+# the single-device exact ring on kernel A, run here (phase 7's order-8 path runs
+# kernel B at K = 1)
+SHARD_TOL_F32 = 2e-6
+SHARD_TOL_BF16 = BF16_TOL
+SHARD_TOL_BF16_F32 = 1e-2
+BF16_BITWISE_STEPS = 10
+SHARDED_U = {}  # u_N of the f32 sharded run the bf16 run is held to
+SHARDED_PATHS = {
+    "sharded x4 order 4": (4, None, False, "float32", "order 4", [r"B R=2 K=\d float32 m"],
+                           [r"B R=2 K=2 float32 m"], SHARD_TOL_F32),
+    "sharded 2x2 order 4": (4, (2, 2), False, "float32", "order 4", [r"B R=2 K=\d float32 m"],
+                            [r"B R=2 K=2 float32 m"], SHARD_TOL_F32),
+    "sharded x4 order 4 layered": (4, None, True, "float32", "order 4 layered",
+                                   [r"B R=2 K=\d float32 w"], [r"B R=2 K=2 float32 w"],
+                                   SHARD_TOL_F32),
+    "sharded x4 order 4 bf16": (4, None, False, "bfloat16", "order 4 bf16",
+                                [r"B R=2 K=\d bfloat16 m"], [r"B R=2 K=2 bfloat16 m"],
+                                SHARD_TOL_BF16),
+    "sharded x4 order 8 per-step": (8, None, False, "float32", "order 8 exact ring",
+                                    [r"A R=4 float32 scalar"], [r"A R=4 float32 scalar"], 0.0),
+}
+
+
+def check_frozen(B, grid, U, out, mask, k, w, frozen):
+    """Kernel B with margins against its plain version with the same
+    margins; every frozen cell must hold u_n in both output levels, bit for
+    bit."""
+    import torch
+
+    kw = dict(zip(FROZEN_KEYS, frozen))
+    got = B.sweep_fused(U, out.clone(), grid=grid, dt=CHECK_DT, m_val=1.5, k_fuse=k, w=w, **kw)
+    want = B.sweep_fused_ref(U, grid=grid, dt=CHECK_DT, m_val=1.5, k_fuse=k, w=w, **kw)
+    mode = B.mode_key(grid, k, U, w)[2:]
+    name = (f"B {mode[0]} {mode[1]} R={grid.radius} {grid.nx}x{grid.ny}x{grid.nz} K={k}"
+            f" frozen {frozen}")
+    for sl in B.frozen_slices(grid, frozen):
+        for lvl in range(2):
+            if not torch.equal(got[lvl][sl], U[1][sl]):
+                raise AssertionError(f"{name}: a frozen cell of level {lvl} is not u_n")
+    return compare(name + ", frozen cells bitwise u_n", got, want, _lap_free(U, k), out, mask)
+
+
+def phase_frozen_margins(tt, dev):
+    """Kernel B's frozen margins in every mode at radius 1-2 and K = 1-3,
+    margins on x and y, on small shapes; then at the sharded main path's
+    shard shapes (the 1-D x edge shard, the 2x2 corner shard), and timed at
+    the 1-D shard's shape beside the same call without margins. Returns
+    the timed mode's {"ms", "plain_ms", "bound_ms", ...}."""
+    import torch
+    from tpufdtd_torch.ops import stencil_sweep as B
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for storage, medium in (("float32", "m"),) + NEW_MODES:
+        for radius in (1, 2):
+            order = 2 * radius
+            for grid in (tt.Grid3D(17, 13, 11, hx=0.1, hy=0.05, hz=0.2, order=order),
+                         tt.Grid3D(40, 24, 70, order=order)):
+                U, out, mask = _fast_pair(grid, gen, dev, storage)
+                w = _w_stream(B, grid, gen, dev, medium)
+                for k in (1, 2, 3):
+                    for frozen in ((2, 3, 1, 2), (0, radius * (k - 1) or 1, 3, 0)):
+                        worst = max(worst, check_frozen(B, grid, U, out, mask, k, w, frozen))
+    # the sharded 512^3 path's shards at order 4, K = 2: M = 2
+    M, k = 2, 2
+    for shape, frozen in (((MAIN_N // 4 + 2 * M, MAIN_N, MAIN_N), (M, 0, 0, 0)),
+                          ((MAIN_N // 2 + 2 * M, MAIN_N // 2 + 2 * M, MAIN_N), (M, 0, M, 0))):
+        grid = tt.Grid3D(*shape)
+        for storage, medium in (("float32", "m"),) + NEW_MODES:
+            U, out, mask = _fast_pair(grid, gen, dev, storage)
+            w = _w_stream(B, grid, gen, dev, medium)
+            worst = max(worst, check_frozen(B, grid, U, out, mask, k, w, frozen))
+            del U, out, mask, w
+    grid = tt.Grid3D(MAIN_N // 4 + 2 * M, MAIN_N, MAIN_N)
+    U, out, _mask = _fast_pair(grid, gen, dev)
+    kw = dict(zip(FROZEN_KEYS, (M, 0, 0, 0)))
+    ms = cuda_ms(lambda: B.sweep_fused(U, out, grid=grid, dt=1e-3, m_val=1.5, k_fuse=k, **kw),
+                 20)
+    ms0 = cuda_ms(lambda: B.sweep_fused(U, out, grid=grid, dt=1e-3, m_val=1.5, k_fuse=k), 20)
+    plain = cuda_ms(lambda: B.sweep_fused_ref(U, grid=grid, dt=1e-3, m_val=1.5, k_fuse=k, **kw), 3)
+    bms, by = bound_b(grid, k)
+    print(f"  B R=2 K=2 frozen (M, 0) at {grid.nx}x{grid.ny}x{grid.nz} (a 1-D shard of"
+          f" {MAIN_N}^3): {ms:.4f} ms/call, the same call without margins {ms0:.4f}, plain"
+          f" {plain:.4f}, bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": worst, "ms": ms, "ms_no_margins": ms0, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_sharded(tt, dev, smi, name, order, shape, layered, storage, single, allowed,
+                  needed, single_tol):
+    """One sharded 512^3 x 50 run with four shards on this card, through
+    ShardedSimulator: launches (kernel B with margins counted apart), u_N
+    against the single-device run of the same path (phases 6, 7, 9, 10)
+    and its f64 truth (in bf16 also against the f32 sharded run, and
+    without sources bitwise against the single-device sweep), and ms/step
+    over the 45 steps after the warmup,
+    median of three spans, beside the single-device run's. Returns the
+    launches per mode."""
+    from tpufdtd_torch.harness import media
+    from tpufdtd_torch.harness.perf_sharded import NO_SCALING, timed_span
+    from tpufdtd_torch.ops import stencil_sweep as B
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    n, nsteps, warm = MAIN_N, 50, 5
+    grid = tt.Grid3D(n, n, n, order=order)
+    cfg = tt.SimConfig(dt=0.001, nsteps=nsteps, warmup_steps=warm, storage_dtype=storage)
+    m = media.layered(grid) if layered else np.full(grid.padded_shape, 1.5, np.float32)
+    src = tt.ricker_table(nsteps, 1, cfg.dt)
+    coords = tt.default_source_coords(1, n, n, n)
+    u0 = np.zeros(grid.padded_shape, np.float32)
+    mesh = make_mesh(shape=shape, devices=[dev] * 4) if shape else make_mesh(devices=[dev] * 4)
+    sim = ShardedSimulator(grid, cfg, m, mesh, coords)
+    term = tt.build_source_term(grid, coords, m)
+    live = term.scale != 0
+    owners = sorted({(int(x) - grid.halo) // (n // mesh.ndx) for x in term.ix[live]})
+    state, m_sh, terms = sim.prepare(u0, u0, m)
+    engine = f"sweep K={sim.sweep.K}" if isinstance(state, dict) else "per-step (kernel A)"
+    reset_counts()
+    state = sim.run(state, m_sh, terms, src[:warm], warm)
+    secs, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:], nsteps - warm))
+    modes = launches_by_mode()
+    frozen = B.launches("frozen")
+    print(f"  {name} ({mesh.ndx}x{mesh.ndy} shards, {engine}): source corners in x shards"
+          f" {owners}; launches {modes}, of them kernel B with frozen margins {frozen}")
+    check_launches(name, modes, allowed, needed)
+    if isinstance(state, dict) != (frozen > 0):
+        raise AssertionError(f"{name}: {frozen} frozen-margin launches on the {engine} engine")
+    FROZEN_LAUNCHES[name] = frozen
+    c = sim.extract_state(state)[1]
+    if single not in SINGLE:  # the exact ring of phase 7's order: run it here
+        path = SINGLE[single.removesuffix(" exact ring")]
+        sim1 = tt.Simulator(grid, dataclasses.replace(cfg, ring="exact"), m, coords, device=dev)
+        st1, secs1, _ = sim1.run_timed(sim1.prepare_state(u0, u0), src)
+        SINGLE[single] = {"c": sim1.extract_state(st1)[1], "truth": path["truth"],
+                          "ms": secs1 / (nsteps - warm) * 1e3}
+        print(f"  single-device {single}, order {order}: {SINGLE[single]['ms']:.4f} ms/step,"
+              f" rel-L2 {rel_l2(SINGLE[single]['c'], path['c']):.3e} vs phase 7's run [{smi}]")
+        del sim1, st1
+    want = SINGLE[single]
+    l2_truth, l2_single = rel_l2(c, want["truth"]), rel_l2(c, want["c"])
+    same = np.array_equal(c, want["c"])
+    tol = BF16_TOL if storage == "bfloat16" else GATE_TOL
+    print(f"  {name} u_N: rel-L2 {l2_truth:.3e} vs f64 truth (< {tol}), {l2_single:.3e} vs the"
+          f" single-device {single} run (<= {single_tol}; bitwise {same}), max |u|"
+          f" {np.abs(c).max():.4e}")
+    if not (np.isfinite(c).all() and l2_truth < tol and l2_single <= single_tol
+            and (same or single_tol > 0)):
+        raise AssertionError(f"{name}: rel-L2 {l2_truth} vs truth, {l2_single} vs single device")
+    if name == "sharded x4 order 4":
+        SHARDED_U[name] = c
+    if storage == "bfloat16":
+        l2_f32 = rel_l2(c, SHARDED_U.pop("sharded x4 order 4"))
+        print(f"  {name} u_N: rel-L2 {l2_f32:.3e} vs the f32 sharded x4 order 4 run"
+              f" (< {SHARD_TOL_BF16_F32})")
+        if not l2_f32 < SHARD_TOL_BF16_F32:
+            raise AssertionError(f"{name}: rel-L2 {l2_f32} vs the f32 sharded run")
+        bitwise_without_sources(tt, dev, grid, cfg, m, mesh, name)
+    del c
+    times = [secs]
+    for _ in range(2):
+        t, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:], nsteps - warm))
+        times.append(t)
+    ms = float(np.median(times)) / (nsteps - warm) * 1e3
+    print(f"  {name}: {ms:.4f} ms/step, the single-device run {want['ms']:.4f} ms/step"
+          f" ({NO_SCALING}) [{smi}]; spans (s) {times}")
+    sharded_breakdown(sim, state, m_sh, terms, src, name)
+    return modes
+
+
+def bitwise_without_sources(tt, dev, grid, cfg, m, mesh, name):
+    """The sharded sweep against the single-device sweep on the same random
+    zero-rim levels, without sources, BF16_BITWISE_STEPS steps: u_{N-1}
+    and u_N bit for bit."""
+    import torch
+    from tpufdtd_torch.parallel import ShardedSimulator
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    mask = interior_mask(grid, dev)
+    ua, ub = ((torch.randn(grid.padded_shape, generator=gen, device=dev) * mask).cpu().numpy()
+              for _ in range(2))
+    del mask
+    nsteps = BF16_BITWISE_STEPS
+    sim1 = tt.Simulator(grid, cfg, m, None, device=dev)
+    one = sim1.extract_state(sim1.run(sim1.prepare_state(ua, ub), None, nsteps))
+    del sim1
+    sim = ShardedSimulator(grid, cfg, m, mesh)
+    state, m_sh, terms = sim.prepare(ua, ub, m)
+    if not isinstance(state, dict):
+        raise AssertionError(f"{name} without sources: the per-step engine")
+    got = sim.extract_state(sim.run(state, m_sh, terms, None, nsteps))
+    same = all(np.array_equal(a, b) for a, b in zip(got, one))
+    print(f"  {name} without sources, {nsteps} steps from random levels: u_N-1 and u_N"
+          f" bitwise the single-device sweep's: {same}")
+    if not same:
+        raise AssertionError(f"{name} without sources differs from the single-device sweep")
+
+
+def sharded_breakdown(sim, state, m_sh, terms, src, name):
+    """ms per block (the sweep) or per step (per-step engine) of the parts
+    of a sharded run, each timed alone with CUDA events over 20 repeats
+    on the run's final state: every shard's kernel, the exchange copies,
+    the source correction."""
+    import torch
+    from tpufdtd_torch.sources import inject
+
+    if isinstance(state, dict):
+        sw = sim.sweep
+        states = state["sweep"]
+        tab = torch.as_tensor(src[:sw.K], device=sim.mesh.devices[0])
+        Us = [[st[0] for st in col] for col in states]
+        shards = [(dx, dy) for dx in range(sw.ndx) for dy in range(sw.ndy)]
+        parts = {
+            "kernels": lambda: [sw._kern(*states[dx][dy], dx, dy, sw.K) for dx, dy in shards],
+            "exchange": lambda: (sw._exchange_y(Us), sw._exchange_x(Us)),
+            "correction": lambda: [sw._correct(states[dx][dy][1], sw.entries[dx][dy][sw.K], tab)
+                                   for dx, dy in shards if sw.entries[dx][dy] is not None],
+        }
+        unit = f"block of K={sw.K}"
+    else:
+        P, C, T = state
+        tab = torch.as_tensor(src[:1], device=sim.mesh.devices[0])
+        parts = {
+            "kernels": lambda: [sim._step(C[d], P[d], m_sh[d], T[d]) for d in range(sim.ndev)],
+            "exchange": lambda: sim._exchange(C),
+            "correction": lambda: [inject(T[d], terms[d], tab[0]) for d in range(sim.ndev)
+                                   if terms[d] is not None],
+        }
+        unit = "step"
+    out = {k: cuda_ms(fn, 20) for k, fn in parts.items()}
+    print(f"  {name} per {unit}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+
+
+
 def run_phases(tt, dev, smi):
-    """Phases 3-10; returns the kernels line's entries."""
+    """Phases 3-12; returns the kernels line's entries."""
     from tpufdtd_torch.ops.stencil_sweep import MODE_RADII
     from tpufdtd_torch.stepper import K_AUTO, MODE_K  # MODE_K: the w and bf16 modes' K
 
@@ -732,12 +1020,23 @@ def run_phases(tt, dev, smi):
         phase_layered_gate(tt, dev, order)
     for order, (allowed, needed) in LAYERED_LAUNCHES.items():
         paths[f"order {order} layered"] = phase_path(tt, dev, smi, order, allowed, needed,
-                                                     layered=True, plain=False)[0]
+                                                     layered=True, plain=False,
+                                                     keep="order 4 layered" if order == 4
+                                                     else None)[0]
     print(f"[10 bf16 paths {MAIN_N}^3 x 50]")
     for name, (order, layered, launches) in BF16_PATHS.items():
         paths[f"{name} bf16"] = phase_path(tt, dev, smi, order, launches, launches,
                                            layered=layered, storage="bfloat16", tol=BF16_TOL,
-                                           plain=False, f32_twin=True)[0]
+                                           plain=False, f32_twin=True,
+                                           keep="order 4 bf16" if name == "order 4" else None)[0]
+    print("[11 kernel B with frozen margins vs plain]")
+    frozen = phase_frozen_margins(tt, dev)
+    print("[11b kernel A at a shard of the sharded per-step path vs plain]")
+    a_shard, a4_shard = phase_kernel_a_shard(tt, dev)
+    print(f"[12 sharded paths {MAIN_N}^3 x 50, four shards on one card: no scaling figure]")
+    for name, spec in SHARDED_PATHS.items():
+        paths[name] = phase_sharded(tt, dev, smi, name, *spec)
+    SINGLE.clear()
 
     def launched(pattern):
         """Launches of the modes matching `pattern`, per path that ran any."""
@@ -775,6 +1074,8 @@ def run_phases(tt, dev, smi):
             sweep_modes[f"{tag} R={r},K={MODE_K}"] = b_new(storage, medium, r)
     a_mode = {f"R={r}, {s}, {mk} m, {MAIN_N}^3": a_new(r, s, mk, v)
               for (r, s, mk), v in a_bf16.items()}
+    a_mode[f"R=4, float32, scalar m, a {a_shard} shard"] = a_new(4, "float32", "scalar",
+                                                                 a4_shard)
     kernels = [
         {"name": "leapfrog_step_zsplit", "route": "cuda", "source": step,
          "replaces": "tpufdtd/ops/stencil_pallas_z.py:148", "mode": f"R=2, scalar m, {GATE_N}^3",
@@ -788,8 +1089,12 @@ def run_phases(tt, dev, smi):
          "path_launches": {"order 4": launches_b, **sweep_paths},
          **b_mode(2, K_AUTO[2]),
          "max_abs_err": max([b[r]["max_abs_err"] for r in (1, 2, 3)]
-                            + [v["max_abs_err"] for v in bm.values()]),
-         "modes": sweep_modes},
+                            + [v["max_abs_err"] for v in bm.values()] + [frozen["max_abs_err"]]),
+         "modes": {**sweep_modes, FROZEN_MODE: {
+             **{k: v for k, v in frozen.items() if k != "max_abs_err"},
+             "max_abs_err": frozen["max_abs_err"], "library_ms": None,
+             "launches": sum(FROZEN_LAUNCHES.values()),
+             "path_launches": dict(FROZEN_LAUNCHES)}}},
         {"name": "packed_step", "route": "cuda", "source": sweep,
          "replaces": "tpufdtd/ops/stencil_pallas_z.py:405", "mode": "R=4,K=1",
          "launches": total(r"B R=4 K=1 float32 m"),

@@ -248,7 +248,7 @@ def test_launch_failure_raises(dev):
     # a depth the library does not build: the C entry's code raises
     code = _build.library().tpufdtd_sweep(
         U.data_ptr(), out.data_ptr(), None, 16, 16, 16, g.halo, 2, 5, 1, 0, 64, 8, 32,
-        _build.coeff_array([0.0] * 16), torch.cuda.current_stream().cuda_stream)
+        0, 0, 0, 0, _build.coeff_array([0.0] * 16), torch.cuda.current_stream().cuda_stream)
     with pytest.raises(ValueError, match="depth K = 5"):
         _build.check(code, "sweep_fused")
     # more x-chunks than a grid may have blocks along z: the launch fails
@@ -316,3 +316,93 @@ def test_smem_bytes_is_what_the_launch_requests(dev):
         policy = (ctypes.c_int * 2)()
         lib.tpufdtd_sweep_policy(r, k, policy)
         assert list(policy) == [B.cells_per_thread(r, k), B.min_blocks(r, k)]
+
+
+# ---- kernel B's frozen margins and the sharded engines -----------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("dtype,with_w", [(torch.float32, False), (torch.float32, True),
+                                          (torch.bfloat16, False), (torch.bfloat16, True)])
+def test_kernel_b_frozen_margins_match_plain(dev, k, radius, dtype, with_w):
+    """Margins on x and y (the sharded sweep's edge shards): the kernel
+    against its plain version with the same margins; every frozen cell holds
+    u_n in both output levels, bit for bit, although `out` starts as
+    something else there."""
+    g = tt.Grid3D(40, 24, 70, order=2 * radius)
+    frozen = {"frozen_lo": 2, "frozen_hi": 3, "frozen_ylo": 1, "frozen_yhi": 2}
+    gen = torch.Generator(device=dev).manual_seed(7 * k + radius)
+    U = torch.randn((2,) + g.padded_shape, generator=gen, device=dev)
+    mask = _mask(g, dev)
+    U[0][~mask] = U[1][~mask]
+    U = U.to(dtype)
+    w = _w(g, dev, gen) if with_w else None
+    out = U.clone()
+    out[:, mask] = 7.0
+    key = B.mode_key(g, k, U, w)
+    before = B.frozen_counts[key]
+    got = B.sweep_fused(U, out.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w, **frozen)
+    assert B.frozen_counts[key] == before + 1
+    want = B.sweep_fused_ref(U, grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w, **frozen)
+    torch.cuda.synchronize()
+    for sl in B.frozen_slices(g, tuple(frozen.values())):
+        assert torch.equal(got[0][sl], U[1][sl]) and torch.equal(got[1][sl], U[1][sl])
+    Uf = U.float()
+    d = Uf[1] - Uf[0]
+    _close(got, want, torch.stack([Uf[1] + (k - 1) * d, Uf[1] + k * d]), out, mask)
+
+
+def _zero_rim_pair(g, seed):
+    rng = np.random.default_rng(seed)
+    h = g.halo
+    out = []
+    for _ in range(2):
+        a = np.zeros(g.padded_shape, np.float32)
+        a[h:-h, h:-h, h:-h] = rng.standard_normal((g.nx, g.ny, g.nz))
+        out.append(a)
+    return out
+
+
+@pytest.mark.parametrize("shape", [None, (2, 2)])
+@pytest.mark.parametrize("storage,layered", [("float32", False), ("float32", True),
+                                             ("bfloat16", False)])
+def test_sharded_sweep_on_card_is_bitwise_single_device(dev, shape, storage, layered):
+    """Four shards on one card, no sources: the sharded sweep's u_N is
+    bitwise the single-device sweep's at the same depth, and every kernel-B
+    launch of it ran on the card, the edge shards' with frozen margins."""
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    g = tt.Grid3D(64, 48, 40)
+    m = media.layered(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    up, uc = _zero_rim_pair(g, 5)
+    cfg = tt.SimConfig(nsteps=9, storage_dtype=storage)
+    mesh = make_mesh(shape=shape, devices=[dev] * 4) if shape else make_mesh(devices=[dev] * 4)
+    sim = ShardedSimulator(g, cfg, m, mesh)
+    B.reset_counts()
+    st, ms, pk = sim.prepare(up, uc, m)
+    p, c = sim.extract_state(sim.run(st, ms, pk, None, 9))
+    assert B.launches("plain") == 0 and B.launches("frozen") > 0
+    s1 = tt.Simulator(g, cfg, m, device=dev)
+    assert s1.engine.sweep_k == sim.sweep.K
+    p1, c1 = s1.extract_state(s1.run(s1.prepare_state(up, uc), None, 9))
+    assert np.array_equal(c, c1) and np.array_equal(p, p1)
+
+
+def test_sharded_per_step_on_card_matches_single_device(dev):
+    """The per-step engine at order 8, four shards on kernel A: bitwise the
+    single-device exact ring."""
+    from tpufdtd_torch.parallel import make_mesh, simulate_sharded
+
+    g = tt.Grid3D(64, 40, 36, order=8)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    up, uc = _zero_rim_pair(g, 6)
+    coords = np.array([[3.15, 2.0, 1.8]], np.float32)  # x = 31.5 cells: shards 1 | 2
+    src = tt.ricker_table(7, 1, 0.001)
+    cfg = tt.SimConfig(nsteps=7, ring="exact")
+    A.reset_counts()
+    ring = simulate_sharded(up, uc, m, g, cfg, make_mesh(devices=[dev] * 4), src, coords)
+    assert A.launches() == 28 and A.launches("plain") == 0
+    ring1 = tt.simulate_ring(up, uc, m, g, cfg, src, coords, device=dev)
+    for a, b in zip(ring, ring1):
+        assert np.array_equal(a, b)

@@ -10,6 +10,14 @@
 // and every stage keeps cells outside the global interior at their loaded
 // values.
 //
+// Frozen margins (the TPU sweep's frozen_lo/hi/ylo/yhi, which the sharded
+// sweep sets on its edge shards): interior planes and rows at the x and y
+// ends that no stage updates. The C entry (stencil_sweep.cu) runs the
+// kernel on a view of the arrays that starts and ends that many planes and
+// rows further in, so the margins are the view's rim, carried through every
+// stage at their loaded u_n; Geom's strides are the whole array's. A small
+// copy kernel there writes u_n into both output levels at the margins.
+//
 // Modes (template parameters; the w stream and bf16 take R = 1..3, as the
 // TPU sweep does):
 //   * medium: a scalar m, or a per-point w stream for a heterogeneous m
@@ -115,6 +123,7 @@ struct Geom {
   int ty, tz, xc;        // the block's column and x-planes
   int vb;                // bytes per staging copy: 16, 8, 4, or 2 (plain)
   int vbw;               // the same for the w stream
+  int nxpa, nypa;        // padded x and y extents of the whole array (its strides)
 };
 
 // Update of one cell: xn[d] = the level at plane x-R+d (xn[R] the centre),
@@ -232,7 +241,7 @@ kernel(const T* __restrict__ uin, T* __restrict__ uout, const float* __restrict_
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = g.halo, NT = blockDim.x;
   const int nxp = g.nx + 2 * H, nyp = g.ny + 2 * H, nzp = g.nz + 2 * H;
-  const int64_t gsx = (int64_t)nyp * nzp, lvl = (int64_t)nxp * gsx;
+  const int64_t gsx = (int64_t)g.nypa * nzp, lvl = (int64_t)g.nxpa * gsx;
   const int PY = g.ty + 2 * G, PZ = g.tz + 2 * G, PS = PY * PZ;
   const int SP = (PZ + V - 1) / V * V + V, SS = PY * SP;
   T* stage = reinterpret_cast<T*>(smem_raw);  // u_n: STAGES planes

@@ -7,6 +7,8 @@ Usage:
   python -m tpufdtd_torch.harness.cli --sizes 32 64 --grids 128 256
   python -m tpufdtd_torch.harness.cli --skip-correctness --backends cuda
   python -m tpufdtd_torch.harness.cli --storage bfloat16 --medium layered
+  python -m tpufdtd_torch.harness.cli --sharded 4 --grids 512   # rows appended to
+                                                                # benchmark_sharded_torch.csv
 """
 
 from __future__ import annotations
@@ -45,7 +47,32 @@ def main(argv=None):
     p.add_argument("--skip-perf", action="store_true")
     p.add_argument("--append-csv", action="store_true",
                    help="append to an existing CSV instead of replacing it")
+    p.add_argument("--sharded", type=int, default=0, metavar="N",
+                   help="benchmark the sharded engines over N shards of a 1-D mesh, one"
+                        " card each while there are cards, then round robin over them (rows"
+                        " tagged @<cards>card); rows in --sharded-csv with Devices and a blank"
+                        " Scaling_Eff column")
+    p.add_argument("--sharded-csv", default="benchmark_sharded_torch.csv",
+                   help="CSV the --sharded rows are appended to")
     args = p.parse_args(argv)
+
+    if args.sharded:
+        import torch
+
+        from .perf_sharded import run_sharded_benchmark
+
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards == 0:
+            raise RuntimeError("--sharded times CUDA cards; none is visible")
+        devices = [f"cuda:{i % cards}" for i in range(args.sharded)]
+        path = args.sharded_csv
+        run_sharded_benchmark(args.sharded, grids=args.grids, timesteps=args.steps,
+                              nsrc=args.sources, reps=args.reps, csv_path=path,
+                              devices=devices, order=args.order)
+        print(f"\n=== Sharded results ({path}) ===")
+        with open(path) as f:
+            sys.stdout.write(f.read())
+        return 0
 
     peaks = detect_peaks(args.device)
     print("==========================================")

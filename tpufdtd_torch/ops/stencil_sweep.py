@@ -29,9 +29,20 @@ output). Both buffers must carry the same frozen rims, which the kernel
 never writes. For every K, level 0 of the result is u_{n+K-1} and level 1
 is u_{n+K}; there is no role flip at K = 1.
 
+Frozen margins (`frozen_lo`, `frozen_hi`, `frozen_ylo`, `frozen_yhi`,
+default 0), the TPU sweep's: interior planes [0, frozen_lo) and
+[nx - frozen_hi, nx), and rows [0, frozen_ylo) and [ny - frozen_yhi, ny) of
+every plane, are never leap-updated; every stage carries u_n through, and
+both output levels get u_n there. The sharded sweep
+(parallel/sharded_sweep.py) freezes an edge shard's margin, which overlays
+the global rim. They are run-time arguments of the C entry, which runs the
+same kernels on the view of the arrays without the margins (the margins are
+its rim) and copies u_n into the margins of both output levels.
+
 `sweep_fused` launches the kernel for CUDA tensors and runs the plain
 version `sweep_fused_ref` for CPU tensors; `counts` records which ran, per
-(radius, K, storage dtype, "m" or "w").
+(radius, K, storage dtype, "m" or "w"), and `frozen_counts` the kernel's
+launches with a margin.
 """
 
 from __future__ import annotations
@@ -81,19 +92,23 @@ STAGES = 4
 THREADS = 256
 REG_OVERHEAD = 64
 
-# launches per (radius, K): counts["kernel"] of the CUDA kernel,
-# counts["plain"] of the plain version
+# launches per mode_key: counts["kernel"] of the CUDA kernel, counts["plain"]
+# of the plain version; frozen_counts the kernel's launches with a frozen
+# margin (also in counts["kernel"])
 counts = {"kernel": Counter(), "plain": Counter()}
+frozen_counts = Counter()
 
 
 def reset_counts() -> None:
     for c in counts.values():
         c.clear()
+    frozen_counts.clear()
 
 
 def launches(route: str = "kernel") -> int:
-    """Launches of `route` since the last reset, over every mode."""
-    return sum(counts[route].values())
+    """Launches of `route` since the last reset, over every mode; route
+    "frozen": the kernel's launches with a frozen margin."""
+    return sum((frozen_counts if route == "frozen" else counts[route]).values())
 
 
 def min_blocks(radius: int, k: int) -> int:
@@ -212,13 +227,34 @@ def _leap_w(cur, prev, w, target, *, grid: Grid3D):
     return target
 
 
-def sweep_fused_ref(U, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None):
+def frozen_slices(grid: Grid3D, frozen=(0, 0, 0, 0)) -> list:
+    """Index tuples of the frozen margins (frozen_lo, frozen_hi, frozen_ylo,
+    frozen_yhi) in the padded layout: the interior planes at each x end and
+    the interior rows at each y end."""
+    flo, fhi, fylo, fyhi = frozen
+    h = grid.halo
+    xi, yi, zi = grid.interior_slices()
+    out = []
+    for lo, hi in ((h, h + flo), (h + grid.nx - fhi, h + grid.nx)):
+        if hi > lo:
+            out.append((slice(lo, hi), yi, zi))
+    for lo, hi in ((h, h + fylo), (h + grid.ny - fyhi, h + grid.ny)):
+        if hi > lo:
+            out.append((xi, slice(lo, hi), zi))
+    return out
+
+
+def sweep_fused_ref(U, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None,
+                    frozen_lo: int = 0, frozen_hi: int = 0, frozen_ylo: int = 0,
+                    frozen_yhi: int = 0):
     """Plain PyTorch version of the kernel: U widened to f32, k_fuse eager
-    f32 steps, each writing only the interior (the rims stay frozen), the
-    two outputs rounded to U's dtype once at the end. A scalar m takes the
-    oracle's form (stencil_torch), w the TPU sweep's w form. Returns a new
+    f32 steps, each writing only the interior (the rims stay frozen) and
+    putting the frozen margins' u_n back, the two outputs rounded to U's
+    dtype once at the end. A scalar m takes the oracle's form
+    (stencil_torch), w the TPU sweep's w form. Returns a new
     [u_{n+K-1}, u_{n+K}] tensor."""
     counts["plain"][mode_key(grid, k_fuse, U, w)] += 1
+    margins = frozen_slices(grid, (frozen_lo, frozen_hi, frozen_ylo, frozen_yhi))
     prev = U[0].to(torch.float32, copy=True)
     cur = U[1].to(torch.float32, copy=True)
     for _ in range(k_fuse):
@@ -226,11 +262,13 @@ def sweep_fused_ref(U, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None):
             stencil_torch.leapfrog_step(cur, prev, m_val, prev, grid=grid, dt=dt)
         else:
             _leap_w(cur, prev, w, prev, grid=grid)
+        for sl in margins:
+            prev[sl] = cur[sl]
         prev, cur = cur, prev
     return torch.stack([prev, cur]).to(U.dtype)
 
 
-def _check(U, out, grid: Grid3D, m_val, k_fuse: int, w):
+def _check(U, out, grid: Grid3D, m_val, k_fuse: int, w, frozen):
     shape = (2,) + tuple(grid.padded_shape)
     for name, t in (("U", U), ("out", out)):
         if not torch.is_tensor(t):
@@ -261,20 +299,35 @@ def _check(U, out, grid: Grid3D, m_val, k_fuse: int, w):
     kmax = k_max(grid.radius)
     if not 1 <= k_fuse <= kmax:
         raise ValueError(f"k_fuse={k_fuse} out of range 1..{kmax} at radius {grid.radius}")
+    flo, fhi, fylo, fyhi = frozen
+    if min(frozen) < 0 or flo + fhi > grid.nx or fylo + fyhi > grid.ny:
+        raise ValueError(f"frozen margins out of range: x {flo}+{fhi} of {grid.nx} planes,"
+                         f" y {fylo}+{fyhi} of {grid.ny} rows")
 
 
 @torch.no_grad()
-def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, tile=None):
+def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, tile=None,
+                frozen_lo: int = 0, frozen_hi: int = 0, frozen_ylo: int = 0,
+                frozen_yhi: int = 0):
     """[u_{n-1}, u_n] in U -> [u_{n+K-1}, u_{n+K}] in out's interior;
     returns out. U and out are f32 or bf16; `w` (f32, padded shape) selects
-    the heterogeneous-medium mode, and m_val is then ignored. CPU tensors
-    take the plain version; CUDA tensors launch the kernel, and a failed
-    launch raises. `tile` = (XC, TY, TZ) overrides the block shape of
-    TILES, for tuning."""
-    _check(U, out, grid, m_val, k_fuse, w)
+    the heterogeneous-medium mode, and m_val is then ignored. The frozen
+    margins (module docstring) get u_n in both levels. CPU tensors take the
+    plain version; CUDA tensors launch the kernel, and a failed launch
+    raises. `tile` = (XC, TY, TZ) overrides the block shape of TILES, for
+    tuning."""
+    frozen = (frozen_lo, frozen_hi, frozen_ylo, frozen_yhi)
+    _check(U, out, grid, m_val, k_fuse, w, frozen)
     R = grid.radius
     key = mode_key(grid, k_fuse, U, w)
-    tile = tile_for(*key) if tile is None else tuple(tile)
+    if tile is None:
+        # x-chunks of equal length: a short last chunk pays a whole block's
+        # 2KR planes of pipeline fill for a few output planes
+        xc, ty, tz = tile_for(*key)
+        nx = grid.nx - frozen_lo - frozen_hi
+        tile = (-(-nx // -(-nx // xc)) if nx > 0 else xc, ty, tz)
+    else:
+        tile = tuple(tile)
     need = smem_bytes(R, k_fuse, tile, key[2], key[3])
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse} needs {need} B of shared memory")
@@ -284,7 +337,9 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse}: the region exceeds {cells} cells"
                          " per thread")
     if U.device.type == "cpu":
-        res = sweep_fused_ref(U, grid=grid, dt=dt, m_val=m_val, k_fuse=k_fuse, w=w)
+        res = sweep_fused_ref(U, grid=grid, dt=dt, m_val=m_val, k_fuse=k_fuse, w=w,
+                              frozen_lo=frozen_lo, frozen_hi=frozen_hi,
+                              frozen_ylo=frozen_ylo, frozen_yhi=frozen_yhi)
         interior = (slice(None),) + grid.interior_slices()
         out[interior] = res[interior]
         return out
@@ -296,9 +351,11 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
         code = lib.tpufdtd_sweep(
             U.data_ptr(), out.data_ptr(), None if w is None else w.data_ptr(),
             grid.nx, grid.ny, grid.nz, grid.halo, R, k_fuse, int(_isotropic(grid)),
-            int(U.dtype == torch.bfloat16), *tile, coeffs,
+            int(U.dtype == torch.bfloat16), *tile, *frozen, coeffs,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "sweep_fused")
     counts["kernel"][key] += 1
+    if any(frozen):
+        frozen_counts[key] += 1
     return out
