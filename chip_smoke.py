@@ -8,7 +8,7 @@ exits non-zero without a result line:
   1. card: name, power limit, torch / CUDA / nvcc versions;
   2. build: both kernels from tpufdtd_torch/csrc, each source's nvcc time,
      and each kernel's registers and spills from -Xptxas -v (fails on any
-     spill);
+     spill); 2b. kernel A's block shape per mode;
   3. kernel A (single step) against its plain version, rims bitwise;
   3b. kernel A at order 12 (leapfrog_step_pallas's role) at 512^3, scalar
      and per-point m, checked then timed;
@@ -105,12 +105,12 @@ def ptxas_summary(log: str) -> list:
         if m:
             cur = m.group(1)
             b = re.search(r"kernelILi(\d)ELi(\d)ELb(\d)E(f|13__nv_bfloat16)Lb(\d)E", cur)
-            a = re.search(r"leapfrog_step_kernelILi(\d+)E(f|13__nv_bfloat16)", cur)
+            a = re.search(r"leapfrog_xsweepILi(\d)E(f|13__nv_bfloat16)Li(\d)E", cur)
             if b:
                 cur = (f"B R={b[1]} K={b[2]} {'iso' if b[3] == '1' else 'exact'}"
                        f" {'f32' if b[4] == 'f' else 'bf16'} {'w' if b[5] == '1' else 'm'}")
             elif a:
-                cur = f"A R={a[1]} {'f32' if a[2] == 'f' else 'bf16'}"
+                cur = f"A R={a[1]} {'f32' if a[2] == 'f' else 'bf16'} {a[3]} blocks/SM"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill"
                       r" loads", line)
@@ -984,11 +984,29 @@ def sharded_breakdown(sim, state, m_sh, terms, src, name):
 
 
 
+def print_tiles_a():
+    """Kernel A's block shape per mode (ops/stencil_step.tile_for), with its
+    blocks per SM, cells per thread and shared memory."""
+    from tpufdtd_torch.ops import stencil_step as A
+
+    for storage in A.STORAGE.values():
+        for mkind in ("scalar", "per-point"):
+            modes = []
+            for r in A.RADII:
+                tile = A.tile_for(r, storage, mkind)
+                blocks = A.blocks_per_sm(r, tile)
+                modes.append(f"R={r} {tile} {blocks}/SM {A.cells_per_thread(r, blocks)} cells"
+                             f" {A.smem_bytes(r, tile, storage, mkind)} B")
+            print(f"  A {storage} m {mkind}: " + "; ".join(modes))
+
+
 def run_phases(tt, dev, smi):
     """Phases 3-12; returns the kernels line's entries."""
     from tpufdtd_torch.ops.stencil_sweep import MODE_RADII
     from tpufdtd_torch.stepper import K_AUTO, MODE_K  # MODE_K: the w and bf16 modes' K
 
+    print("[2b kernel A block shapes (XC, TY, TZ) per mode]")
+    print_tiles_a()
     print("[3 kernel A vs plain]")
     a4 = phase_kernel_a(tt, dev)
     print("[3b kernel A at order 12 vs plain]")

@@ -197,6 +197,113 @@ def test_kernel_a_bf16_matches_plain(dev, order, per_point):
     _close(got, want, 2 * cur.float() - prev.float(), tgt, _mask(g, dev))
 
 
+def _check_a(dev, g, dtype, per_point, tile=None):
+    """Kernel A against its plain version on random levels, the target's
+    rim bitwise unchanged (_close)."""
+    gen = torch.Generator(device=dev).manual_seed(g.nx + 7 * g.order)
+    cur, prev, tgt = (torch.randn(g.padded_shape, generator=gen, device=dev).to(dtype)
+                      for _ in range(3))
+    m = 1.5 + 0.5 * torch.rand(g.padded_shape, generator=gen, device=dev) if per_point else 1.5
+    got = A.leapfrog_step(cur, prev, m, tgt.clone(), grid=g, dt=DT, tile=tile)
+    want = A.leapfrog_step_ref(cur, prev, m, tgt.clone(), grid=g, dt=DT)
+    torch.cuda.synchronize()
+    _close(got, want, 2 * cur.float() - prev.float(), tgt, _mask(g, dev))
+
+
+# grids at kernel A's edges: nx (prime) not a multiple of the launch's XC, ny
+# and nz not multiples of the tile, narrower than one tile, and row pitches
+# nz + 2H that are not multiples of 16 bytes: odd (f32 4-byte copies, bf16
+# copied plainly) and even (f32 8-byte, bf16 4-byte copies)
+A_EDGES = {"nx % XC": (307, 16, 40), "ny, nz % tile": (20, 37, 70), "narrow": (40, 5, 6),
+           "odd pitch": (17, 13, 11), "even pitch": (17, 13, 14)}
+
+
+@pytest.mark.parametrize("edge", sorted(A_EDGES))
+@pytest.mark.parametrize("per_point", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", A.RADII)
+def test_kernel_a_edges_match_plain(dev, edge, per_point, dtype, radius):
+    g = tt.Grid3D(*A_EDGES[edge], order=2 * radius)
+    _check_a(dev, g, dtype, per_point)
+    if edge == "nx % XC":  # x-chunks of at most 128 planes: a short last chunk
+        tile = (128,) + A.tile_for(*A.mode_key(g, torch.empty(0, dtype=dtype),
+                                               torch.empty(0) if per_point else 1.5))[1:]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert g.nx % A.launch_tile(g, tile, sms)[0] != 0
+        _check_a(dev, g, dtype, per_point, tile=tile)
+
+
+@pytest.mark.parametrize("radius", A.RADII)
+def test_kernel_a_one_block_per_sm_matches_plain(dev, radius):
+    """A column beyond cells_per_thread(R, 2) per thread takes the
+    one-block-per-SM instantiation."""
+    tile = {1: (64, 56, 64), 2: (64, 48, 64)}.get(radius, (64, 32, 64))
+    assert A.blocks_per_sm(radius, tile) == 1 and A.tile_fits(radius, tile)
+    g = tt.Grid3D(150, 70, 100, order=2 * radius)
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_a(dev, g, dtype, radius % 2 == 0, tile=tile)
+
+
+def test_step_smem_and_policy_are_what_the_launch_requests(dev):
+    """ops/stencil_step.smem_bytes states the launch's own expression, and
+    cells_per_thread and blocks_per_sm the kernel's register policy, for
+    every built mode's tile and a one-block-per-SM column."""
+    import ctypes
+
+    from tpufdtd_torch.ops import _build
+
+    lib = _build.library()
+    policy = (ctypes.c_int * 2)()
+    for r in A.RADII:
+        tiles = {A.tile_for(r, s, mk) for s in A.STORAGE.values()
+                 for mk in ("scalar", "per-point")} | {(64, 40, 64)}
+        for tile in tiles:
+            for storage in A.STORAGE.values():
+                for mkind in ("scalar", "per-point"):
+                    got = lib.tpufdtd_step_smem(r, tile[1], tile[2], int(storage == "bfloat16"),
+                                                int(mkind == "per-point"))
+                    assert got == A.smem_bytes(r, tile, storage, mkind)
+            lib.tpufdtd_step_policy(r, tile[1], tile[2], policy)
+            blocks = A.blocks_per_sm(r, tile)
+            assert list(policy) == [A.cells_per_thread(r, blocks), blocks]
+
+
+def test_kernel_a_launch_failure_raises(dev):
+    from tpufdtd_torch.ops import _build
+
+    g = tt.Grid3D(16, 16, 16, order=12)
+    cur, prev, tgt = (torch.zeros(g.padded_shape, device=dev) for _ in range(3))
+    coeffs = _build.coeff_array([0.0] * 16)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    # a radius the library does not build: the C entry's code raises
+    code = lib.tpufdtd_leapfrog_step(cur.data_ptr(), prev.data_ptr(), None, tgt.data_ptr(),
+                                     16, 16, 16, 14, 7, 0, 16, 8, 32, coeffs, stream)
+    with pytest.raises(ValueError, match="radius 7"):
+        _build.check(code, "leapfrog_step")
+    # a column its threads' cells hold, in more shared memory than a block
+    # has: the wrapper refuses it, and so does the C entry
+    tile = (16, 256, 8)
+    assert A.smem_bytes(6, tile) > A.SMEM_LIMIT
+    assert tile[1] * tile[2] <= A.cells_per_thread(6, 1) * A.THREADS
+    with pytest.raises(ValueError, match="shared"):
+        A.leapfrog_step(cur, prev, 1.5, tgt, grid=g, dt=1e-3, tile=tile)
+    code = lib.tpufdtd_leapfrog_step(cur.data_ptr(), prev.data_ptr(), None, tgt.data_ptr(),
+                                     16, 16, 16, 12, 6, 0, *tile, coeffs, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(code, "leapfrog_step")
+    # a column beyond its threads' cells: both refuse it
+    with pytest.raises(ValueError, match="cells"):
+        A.leapfrog_step(cur, prev, 1.5, tgt, grid=g, dt=1e-3, tile=(16, 64, 64))
+    code = lib.tpufdtd_leapfrog_step(cur.data_ptr(), prev.data_ptr(), None, tgt.data_ptr(),
+                                     16, 16, 16, 12, 6, 0, 16, 64, 64, coeffs, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(code, "leapfrog_step")
+    # the refusals left no error behind: the next launch runs
+    A.leapfrog_step(cur, prev, 1.5, tgt, grid=g, dt=1e-3)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("order", [4, 6])
 def test_fast_ring_layered_medium_on_card_matches_truth(dev, order):
     """A heterogeneous medium at orders 4-6 runs kernel B's w mode alone."""

@@ -173,3 +173,76 @@ def test_coeff_values_match_the_oracle_scalars():
     assert cv[7] == dt * dt and cv[8] == np.float32(1.0) / (dt * dt)
     assert cv[10] == np.float32(1.0) / (np.float32(0.1) * np.float32(0.1))
     assert cv[13] == np.float32(1.5) and cv[14] == np.float32(3.0) * np.float32(-2.5)
+
+
+# ---- kernel A's launch shape, mirrored from csrc/stencil_step.cuh -------------
+
+LAUNCH_GRIDS = [(17, 13, 11), (128, 128, 128), (128, 512, 512), (512, 512, 512),
+                (1032, 1032, 1032)]
+
+
+@pytest.mark.parametrize("mkind", ["scalar", "per-point"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius", stencil_step.RADII)
+def test_every_mode_tile_fits_and_gives_a_legal_grid(radius, storage, mkind):
+    """Each built mode's tile fits 227 KB of shared memory and its
+    instantiation's cells, and cuts every grid into a CUDA grid of legal
+    extents whose x-chunks are equal, at most XC planes, and cover nx."""
+    tile = stencil_step.tile_for(radius, storage, mkind)
+    _xc, ty, tz = tile
+    assert stencil_step.tile_fits(radius, tile, storage, mkind)
+    assert stencil_step.smem_bytes(radius, tile, storage, mkind) <= 232448
+    blocks = stencil_step.blocks_per_sm(radius, tile)
+    assert ty * tz <= stencil_step.cells_per_thread(radius, blocks) * stencil_step.THREADS
+    for shape in LAUNCH_GRIDS:
+        g = tt.Grid3D(*shape, order=2 * radius)
+        xc, lty, ltz = stencil_step.launch_tile(g, tile, 132)
+        assert (lty, ltz) == (ty, tz) and 1 <= xc <= tile[0]
+        dims = (-(-g.nz // tz), -(-g.ny // ty), -(-g.nx // xc))
+        assert 1 <= dims[0] < 2**31 and 1 <= dims[1] <= 65535 and 1 <= dims[2] <= 65535
+        assert xc * (dims[2] - 1) < g.nx <= xc * dims[2]
+        # the padded plane's offsets are int, the plane's stride 64-bit
+        assert (g.ny + 2 * g.halo) * (g.nz + 2 * g.halo) < 2**31
+
+
+def test_smem_bytes_and_cells_per_thread_state_the_kernel_layout():
+    """R = 6, (TY, TZ) = (12, 64): rows of 76 cells pitched to 80 f32 or 88
+    bf16; 10 planes of cur over 24 rows, 4 of prev (and m) over 12."""
+    tile = (512, 12, 64)
+    assert stencil_step.smem_bytes(6, tile) == (10 * 24 + 4 * 12) * 80 * 4
+    assert stencil_step.smem_bytes(6, tile, "float32", "per-point") == (
+        (10 * 24 + 4 * 12) * 80 * 4 + 4 * 12 * 80 * 4)
+    assert stencil_step.smem_bytes(6, tile, "bfloat16") == (10 * 24 + 4 * 12) * 88 * 2
+    # two cells a pair, (128 or 240 registers - 72) / (two rings of 2R+1,
+    # two offsets, four more) pairs
+    assert [stencil_step.cells_per_thread(r, 2) for r in stencil_step.RADII] == [10, 8, 6, 4, 4, 2]
+    assert [stencil_step.cells_per_thread(r, 1) for r in stencil_step.RADII] == [32, 24, 18, 14,
+                                                                                 12, 10]
+    assert stencil_step.blocks_per_sm(6, (512, 8, 64)) == 2
+    assert stencil_step.blocks_per_sm(6, (512, 9, 64)) == 1
+
+
+@pytest.mark.parametrize("tile", [(16, 64, 64), (16, 256, 8), (0, 8, 32), (16, 8, 33)])
+def test_wrapper_rejects_a_tile_beyond_the_kernel(tile):
+    """Beyond its threads' cells (64 x 64 at R = 6), beyond 227 KB of shared
+    memory (256 x 8 at R = 6), empty, or of an odd TZ (the kernel's cells
+    come in z pairs): refused before any launch, on the CPU too."""
+    g = tt.Grid3D(16, 16, 16, order=12)
+    cur, prev, tgt = (torch.zeros(g.padded_shape) for _ in range(3))
+    assert not stencil_step.tile_fits(6, tile)
+    with pytest.raises(ValueError, match="tile"):
+        stencil_step.leapfrog_step(cur, prev, 1.5, tgt, grid=g, dt=0.001, tile=tile)
+
+
+@pytest.mark.parametrize("shape,order,tile,want_chunks", [
+    # 344 columns: 3 chunks make 4 waves of 264 blocks, 1 chunk 2 (one short)
+    ((512, 512, 512), 12, (512, 12, 64), 3),
+    ((128, 512, 512), 8, (512, 16, 64), 1),  # 256 columns fill 264 slots once
+    ((128, 128, 128), 4, (512, 24, 64), 22),  # 12 columns: 22 chunks of 6 planes
+    ((512, 512, 512), 4, (256, 24, 64), 3),  # 176 columns: 3 chunks fill 2 waves
+])
+def test_launch_tile_fills_the_card_in_few_waves(shape, order, tile, want_chunks):
+    """Two blocks per SM on 132 SMs: 264 block slots."""
+    g = tt.Grid3D(*shape, order=order)
+    xc, _ty, _tz = stencil_step.launch_tile(g, tile, 132)
+    assert -(-g.nx // xc) == want_chunks

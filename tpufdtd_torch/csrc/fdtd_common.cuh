@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,4 +49,41 @@ static inline Coeffs coeffs_from_host(const float* h) {
   c.w0x3 = h[14];
   c.scale = h[15];
   return c;
+}
+
+// Staging of planes into shared memory, shared by kernels A and B.
+
+// Copies of one staged plane: `rows` rows of `nch` chunks of VB bytes
+// from src (row stride sstride elements) to dst (row stride dstride).
+// VB = 2 (a bf16 row of odd pitch) copies plainly.
+template <int VB, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dstride, const T* __restrict__ src,
+                                          int sstride, int rows, int nch) {
+  constexpr int VE = VB / (int)sizeof(T);
+  const int n = rows * nch;
+  // i / nch by a float reciprocal: exact while n < 2^12 nch, far beyond
+  // any region
+  const float inv = 1.0f / (float)nch;
+  // blockDim.x (== THREADS): a run-time stride, here and for the cells, is
+  // what ptxas fits without spills in every mode
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = (int)(((float)i + 0.5f) * inv), ch = i - r * nch;
+    T* d = dst + r * dstride + ch * VE;
+    const T* s = src + (int64_t)r * sstride + ch * VE;
+    if constexpr (VB >= 4) {
+      __pipeline_memcpy_async(d, s, VB);
+    } else {
+      *d = *s;
+    }
+  }
+}
+
+// bytes per staging copy for rows of nzp elements of T at p: the widest of
+// 16, 8, 4 that divides the row pitch and the pointer's alignment; 2 (a
+// plain copy) for a bf16 row of odd pitch
+template <typename T>
+int copy_bytes(const void* p, int nzp) {
+  for (int vb = 16; vb >= 4; vb /= 2)
+    if ((nzp * (int)sizeof(T)) % vb == 0 && reinterpret_cast<uintptr_t>(p) % vb == 0) return vb;
+  return (int)sizeof(T) == 4 ? 4 : 2;
 }

@@ -77,8 +77,6 @@
 // by a few ulp per step.
 #pragma once
 
-#include <cuda_pipeline_primitives.h>
-
 #include "fdtd_common.cuh"
 
 namespace sweep {
@@ -163,31 +161,6 @@ __device__ __forceinline__ float leap(const float (&xn)[2 * R + 1], const float*
       return c.dt2 * (c.r2 * tx + c.r3 * ty + c.r4 * tz -
                       (c.neg2r1 * uc + c.r1 * up) * c.m) /
              c.m;
-    }
-  }
-}
-
-// Copies of one staged plane: `rows` rows of `nch` chunks of VB bytes
-// from src (row stride sstride elements) to dst (row stride dstride).
-// VB = 2 (a bf16 row of odd pitch) copies plainly.
-template <int VB, typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int dstride, const T* __restrict__ src,
-                                          int sstride, int rows, int nch) {
-  constexpr int VE = VB / (int)sizeof(T);
-  const int n = rows * nch;
-  // i / nch by a float reciprocal: exact while n < 2^12 nch, far beyond
-  // any region
-  const float inv = 1.0f / (float)nch;
-  // blockDim.x (== THREADS): a run-time stride, here and for the cells, is
-  // what ptxas fits without spills in every mode
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = (int)(((float)i + 0.5f) * inv), ch = i - r * nch;
-    T* d = dst + r * dstride + ch * VE;
-    const T* s = src + (int64_t)r * sstride + ch * VE;
-    if constexpr (VB >= 4) {
-      __pipeline_memcpy_async(d, s, VB);
-    } else {
-      *d = *s;
     }
   }
 }
@@ -403,16 +376,6 @@ kernel(const T* __restrict__ uin, T* __restrict__ uout, const float* __restrict_
       }
     }
   }
-}
-
-// bytes per staging copy for rows of nzp elements of T at p: the widest of
-// 16, 8, 4 that divides the row pitch and the pointer's alignment; 2 (a
-// plain copy) for a bf16 row of odd pitch
-template <typename T>
-int copy_bytes(const void* p, int nzp) {
-  for (int vb = 16; vb >= 4; vb /= 2)
-    if ((nzp * (int)sizeof(T)) % vb == 0 && reinterpret_cast<uintptr_t>(p) % vb == 0) return vb;
-  return (int)sizeof(T) == 4 ? 4 : 2;
 }
 
 template <int R, int K, bool ISO, typename T, bool WM>

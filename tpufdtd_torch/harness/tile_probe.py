@@ -1,4 +1,7 @@
-"""Block-shape probe for kernel B (ops/stencil_sweep.TILES).
+"""Block-shape probe for kernels B (ops/stencil_sweep.TILES) and A
+(ops/stencil_step.TILES).
+
+Kernel B:
 
 Times `sweep_fused` at n^3 in one mode (storage dtype, and a scalar m or
 the w stream) for each stencil radius R and fusion depth K over a grid of
@@ -11,10 +14,19 @@ Every shape is first checked bitwise against the kernel's own shape on one
 small grid, so a shape that computes something else fails the probe
 instead of winning it.
 
+Kernel A: times `leapfrog_step` at each of its places (A_PLACES: the
+shape and mode in which a path launches it) over the block shapes that fit
+(stencil_step.tile_fits) and give at least half of their threads' cells
+work, each as the launch cuts it (stencil_step.launch_tile), first checked
+bitwise against the kernel's own shape on a small grid; prints each
+shape's ms per step, and the fastest and the held shape per place.
+
 Usage (on a CUDA card):
   python -m tpufdtd_torch.harness.tile_probe               # 512^3, f32, scalar m
   python -m tpufdtd_torch.harness.tile_probe --n 256 --radius 3 --k 2
   python -m tpufdtd_torch.harness.tile_probe --storage bfloat16 --medium w
+  python -m tpufdtd_torch.harness.tile_probe --kernel A    # every place
+  python -m tpufdtd_torch.harness.tile_probe --kernel A --place gate shard
 """
 
 from __future__ import annotations
@@ -25,12 +37,24 @@ import itertools
 import torch
 
 from ..config import Grid3D
-from ..ops import stencil_sweep
+from ..ops import stencil_step, stencil_sweep
 from ..stepper import resolve_device
 
 XCS = (256, 512)
 TYS = (8, 16, 24, 32, 40, 48)
 TZS = (8, 16, 24, 32, 40, 48, 64, 96, 128)
+
+
+# Kernel A's places: name -> (interior shape, order, storage dtype, m's kind)
+A_PLACES = {
+    "order 12": ((512, 512, 512), 12, "float32", "scalar"),
+    "order 12 bf16": ((512, 512, 512), 12, "bfloat16", "scalar"),
+    "order 8 layered": ((512, 512, 512), 8, "float32", "per-point"),
+    "shard": ((128, 512, 512), 8, "float32", "scalar"),  # the sharded per-step path's
+    "gate": ((128, 128, 128), 4, "float32", "scalar"),
+}
+A_TYS = (4, 8, 12, 16, 24, 32, 40, 48, 64)
+A_TZS = (32, 64, 96, 128)
 
 
 def candidates(radius: int, k: int, first=None, storage: str = "float32",
@@ -47,6 +71,73 @@ def candidates(radius: int, k: int, first=None, storage: str = "float32",
                 and stencil_sweep.tile_fits(radius, k, tile, storage, medium)):
             out.append(tile)
     return out
+
+
+def candidates_a(grid: Grid3D, storage: str, mkind: str, sms: int) -> list:
+    """Kernel A's block shapes at a place that fit (stencil_step.tile_fits)
+    and give at least half of their threads' cells work, the held shape
+    (stencil_step.tile_for) first; one per distinct launch
+    (stencil_step.launch_tile)."""
+    R = grid.radius
+    out, launched = [], set()
+    for tile in [stencil_step.tile_for(R, storage, mkind)] + list(
+            itertools.product(XCS, A_TYS, A_TZS)):
+        _xc, ty, tz = tile
+        cells = stencil_step.cells_per_thread(R, stencil_step.blocks_per_sm(R, tile))
+        key = stencil_step.launch_tile(grid, tile, sms)
+        if out and (2 * ty * tz <= cells * stencil_step.THREADS or key in launched
+                    or not stencil_step.tile_fits(R, tile, storage, mkind)):
+            continue
+        out.append(tile)
+        launched.add(key)
+    return out
+
+
+def _levels(grid: Grid3D, dev, seed: int, storage: str, mkind: str):
+    """cur, prev, a target and m (f32 in [1.5, 2.0] per point, or 1.5)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cur, prev, target = (torch.randn(grid.padded_shape, generator=gen, device=dev)
+                         .to(getattr(torch, storage)) for _ in range(3))
+    m = (1.5 + 0.5 * torch.rand(grid.padded_shape, generator=gen, device=dev)
+         if mkind == "per-point" else 1.5)
+    return cur, prev, target, m
+
+
+def probe_a(places, iters: int, device="cuda") -> dict:
+    """{place: [(tile, ms per step), ...]} of kernel A, fastest first."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the tile probe times CUDA devices only; got {device!r}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    results = {}
+    for name in places:
+        shape, order, storage, mkind = A_PLACES[name]
+        grid = Grid3D(*shape, order=order)
+        small = Grid3D(61, 40, 72, order=order)
+        held_tile = stencil_step.tile_for(grid.radius, storage, mkind)
+        cs, ps, ts, ms_ = _levels(small, dev, order, storage, mkind)
+        kw = dict(dt=0.03)
+        want = stencil_step.leapfrog_step(cs, ps, ms_, ts.clone(), grid=small, **kw)
+        cur, prev, target, m = _levels(grid, dev, 100 + order, storage, mkind)
+        rows = []
+        for tile in candidates_a(grid, storage, mkind, sms):
+            got = stencil_step.leapfrog_step(cs, ps, ms_, ts.clone(), grid=small, tile=tile, **kw)
+            if not torch.equal(got, want):
+                raise AssertionError(f"kernel A {name} tile {tile} disagrees with {held_tile}")
+            ms = _ms(lambda: stencil_step.leapfrog_step(cur, prev, m, target, grid=grid,
+                                                        tile=tile, **kw), iters)
+            rows.append((tile, ms))
+            launch = stencil_step.launch_tile(grid, tile, sms)
+            print(f"A {name} R={grid.radius} {storage} m {mkind} tile {tile} (launch {launch},"
+                  f" {stencil_step.blocks_per_sm(grid.radius, tile)}/SM): {ms:.4f} ms/step",
+                  flush=True)
+        rows.sort(key=lambda r: r[1])
+        held = next(r for r in rows if r[0] == held_tile)
+        print(f"A {name} fastest {rows[0][0]} {rows[0][1]:.4f} ms/step; held {held[0]}"
+              f" {held[1]:.4f} ms/step")
+        results[name] = rows
+        del cur, prev, target, m
+    return results
 
 
 def _ms(fn, iters: int) -> float:
@@ -125,7 +216,10 @@ def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description="block-shape probe for the fused sweep kernel")
+    p = argparse.ArgumentParser(description="block-shape probe for kernels B and A")
+    p.add_argument("--kernel", choices=("B", "A"), default="B")
+    p.add_argument("--place", nargs="*", choices=list(A_PLACES), default=list(A_PLACES),
+                   help="kernel A: the places to probe")
     p.add_argument("--n", type=int, default=512, help="cubic grid size")
     p.add_argument("--radius", type=int, nargs="*", default=list(stencil_sweep.RADII))
     p.add_argument("--k", type=int, nargs="*", default=sorted({k for _, k in stencil_sweep.TILES}))
@@ -135,6 +229,9 @@ def main(argv=None):
     p.add_argument("--medium", choices=("m", "w"), default="m",
                    help="a scalar m, or the w stream of a heterogeneous medium")
     args = p.parse_args(argv)
+    if args.kernel == "A":
+        probe_a(args.place, args.iters, device=args.device)
+        return 0
     radii = args.radius
     if (args.storage, args.medium) != ("float32", "m"):
         radii = [r for r in radii if r in stencil_sweep.MODE_RADII]

@@ -31,8 +31,13 @@ _I = ctypes.c_int
 # name: (argument types, return type)
 _SIGNATURES = {
     # cur, prev, m (or null), target, nx, ny, nz, halo, radius, bf16_storage,
-    # coeffs, stream
-    "tpufdtd_leapfrog_step": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    # xc, ty, tz, coeffs, stream
+    "tpufdtd_leapfrog_step": ([_P, _P, _P, _P] + [_I] * 9 + [_P, _P], _I),
+    # radius, ty, tz, bf16_storage, per_point_m -> the bytes of shared
+    # memory tpufdtd_leapfrog_step requests per block
+    "tpufdtd_step_smem": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    # radius, ty, tz, out[2] <- cells per thread, blocks per SM
+    "tpufdtd_step_policy": ([_I, _I, _I, ctypes.POINTER(_I)], None),
     # uin, uout, w (or null), nx, ny, nz, halo, radius, k, isotropic,
     # bf16_storage, xc, ty, tz, frozen_lo, frozen_hi, frozen_ylo, frozen_yhi,
     # coeffs, stream

@@ -55,7 +55,7 @@ import torch
 from ..config import Grid3D, stencil_weights
 from ..layout import Layout
 from . import _build, stencil_torch
-from .stencil_step import STORAGE, coeff_values
+from .stencil_step import SMEM_LIMIT, STORAGE, coeff_values
 
 RADII = (1, 2, 3, 4)
 # radii of the w stream and of bf16 storage (the TPU sweep's, orders 2-6)
@@ -83,8 +83,6 @@ MODE_TILES = {
     ("bfloat16", "w"): {(1, 2): (256, 24, 32), (1, 3): (512, 16, 32), (1, 4): (256, 24, 16),
                         (3, 1): (256, 16, 48)},
 }
-# Dynamic shared memory one block may use on sm_90 (227 KB).
-SMEM_LIMIT = 232448
 # csrc/stencil_sweep.cuh: planes of u_n's staging ring (STAGES - 1 in
 # flight), the threads of a block, and the registers per thread besides the
 # cells' rings.
