@@ -46,7 +46,21 @@ exits non-zero without a result line:
      source straddles shards 0 | 1), over 2 x 2 shards, on the layered
      medium (w) and in bf16, and the per-step engine at order 8 on kernel A;
      each against the single-device run of its path from phases 6, 7, 9 and
-     10 and that run's f64 truth, with launches and ms/step.
+     10 and that run's f64 truth, with launches and ms/step;
+  13. the reference ABI, compat.kernel_cuda, at 512^3 x 50, order 4, one
+     source (kernel A): every exit slot bitwise simulate_ring and within
+     the gate of the f64 truth, the Profiler's sections;
+  14. checkpoint: the main path checkpointed at step 20 and resumed from the
+     file on a fresh Simulator, bitwise the unbroken run; save and load
+     times;
+  15. sharded checkpoint: x4 order 4 at 512^3 x 50 checkpointed at step 30,
+     resumed on a 2 x 2 mesh and on one device, against the unbroken x4
+     run: bitwise without sources, within 1e-6 rel-L2 with the source;
+  16. the sharded sweep's exchange/compute overlap: x4 order 4 at 512^3 x 50
+     with overlap "on" bitwise "off" in f32 with the source, in the w mode
+     and in bf16, both timed;
+  17. tracing.trace of 10 main-path steps: the device's busy share;
+  18. the bench line of tpufdtd_torch/harness/bench.py.
 Then the JSON line of the kernels (one entry per TPU kernel replaced), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Exits 1
 without a CUDA device.
@@ -54,9 +68,11 @@ without a CUDA device.
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,14 +101,6 @@ LAYERED_GATE_DT = 0.3  # phase 9's gate: dt at h = 1, where the stencil moves th
 # TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_summary(log: str) -> list:
@@ -556,8 +564,9 @@ def run_main(tt, dev, backend, order=4, medium=None, storage="float32", t_fuse=0
     u0 = np.zeros(grid.padded_shape, np.float32)
     sim = tt.Simulator(grid, cfg, m, coords, device=dev)
     state = sim.prepare_state(u0, u0)
-    state, secs, clock = sim.run_timed(state, src)
-    assert clock == "cuda_event"
+    state, secs = sim.run_timed(state, src)
+    if sim.last_clock != "cuda_event":
+        raise AssertionError(f"run_timed's clock is {sim.last_clock!r}, not CUDA events")
     return sim, state, secs, (u0, m, src, coords)
 
 
@@ -607,7 +616,7 @@ def report_times(tt, dev, smi, sim, secs, src, plain=True, label=""):
     times = [secs]
     for seed in range(3):
         st = sim.prepare_state_random(seed)
-        _, s, _ = sim.run_timed(st, src)
+        _, s = sim.run_timed(st, src)
         times.append(s)
         del st
     t = float(np.median(times))
@@ -883,7 +892,7 @@ def phase_sharded(tt, dev, smi, name, order, shape, layered, storage, single, al
     if single not in SINGLE:  # the exact ring of phase 7's order: run it here
         path = SINGLE[single.removesuffix(" exact ring")]
         sim1 = tt.Simulator(grid, dataclasses.replace(cfg, ring="exact"), m, coords, device=dev)
-        st1, secs1, _ = sim1.run_timed(sim1.prepare_state(u0, u0), src)
+        st1, secs1 = sim1.run_timed(sim1.prepare_state(u0, u0), src)
         SINGLE[single] = {"c": sim1.extract_state(st1)[1], "truth": path["truth"],
                           "ms": secs1 / (nsteps - warm) * 1e3}
         print(f"  single-device {single}, order {order}: {SINGLE[single]['ms']:.4f} ms/step,"
@@ -984,6 +993,343 @@ def sharded_breakdown(sim, state, m_sh, terms, src, name):
 
 
 
+# Phases 13-18: the modules ported last, on the main path's configuration
+CKPT_STEP = 20  # phase 14: a multiple of the main path's K = 2
+SHARDED_CKPT_STEP = 30  # phase 15: one checkpoint file per run (30 < 50 < 60)
+SOURCED_RESUME_TOL = 1e-6  # phase 15: a resume on another mesh, with the source
+TRACE_STEPS = 10  # phase 17
+
+
+def main_config(tt, order=4, nsteps=50):
+    """The bench's 512^3 configuration: grid, m = 1.5, the Ricker table, the
+    default source coordinates and zero levels."""
+    n = MAIN_N
+    grid = tt.Grid3D(n, n, n, order=order)
+    return (grid, np.full(grid.padded_shape, 1.5, np.float32), tt.ricker_table(nsteps, 1, 0.001),
+            tt.default_source_coords(1, n, n, n), np.zeros(grid.padded_shape, np.float32))
+
+
+def phase_kernel_cuda(tt, dev, smi):
+    """The reference ABI (compat.kernel_cuda) at 512^3 x 50, order 4, one
+    Ricker source, on the exact ring (kernel A): every exit slot bitwise
+    simulate_ring and within the gate of the f64 truth. Returns the
+    launches per mode."""
+    from tpufdtd_torch.compat import Profiler, kernel_cuda
+
+    n, nsteps = MAIN_N, 50
+    grid, m, src, coords, z = main_config(tt)
+    u = np.zeros((3,) + grid.padded_shape, np.float32)
+    timers = Profiler()
+    reset_counts()
+    t0 = time.perf_counter()
+    kernel_cuda(m, src, coords, u, n - 1, 0, n - 1, 0, n - 1, 0, 0.001, 0.1, 0.1, 0.1, 0.0, 0.0,
+                0.0, 0, 0, nsteps - 1, 0, timers=timers, device=dev)
+    wall = time.perf_counter() - t0
+    modes = launches_by_mode()
+    check_launches("kernel_cuda", modes, [r"A R=2 float32 scalar"], [r"A R=2 float32 scalar"])
+    ring = tt.simulate_ring(z, z, m, grid, tt.SimConfig(nsteps=nsteps), src, coords, device=dev)
+    truth = tt.truth_run_ring(z, z, m, grid, 0.001, nsteps, src, coords, device=dev)
+    tm = nsteps - 1
+    for slot, name, want, t in zip((tm % 3, (tm + 1) % 3, (tm + 2) % 3),
+                                   ("u_N-1", "u_N", "u_N-2"), ring, truth):
+        same, l2 = np.array_equal(u[slot], want), rel_l2(u[slot], t)
+        print(f"  kernel_cuda slot {slot} ({name}): bitwise simulate_ring {same}, rel-L2"
+              f" {l2:.3e} vs f64 truth")
+        if not same or not l2 < GATE_TOL:
+            raise AssertionError(f"kernel_cuda slot {slot}: bitwise {same}, rel-L2 {l2}")
+    if not timers.section0 > 0:
+        raise AssertionError(f"kernel_cuda: Profiler.section0 = {timers.section0}")
+    print(f"  kernel_cuda {n}^3 x {nsteps}: launches {modes}; Profiler section0"
+          f" {timers.section0 * 1e3:.3f} ms, section1 {timers.section1 * 1e3:.4f} ms over the 45"
+          f" timed steps ({(timers.section0 + timers.section1) / 45 * 1e3:.4f} ms/step), call"
+          f" {wall:.1f} s wall with the host copies [{smi}]")
+    return modes, kernel_a_main(tt, dev)
+
+
+def kernel_a_main(tt, dev):
+    """Kernel A in kernel_cuda's mode and shape (order 4, f32, scalar m,
+    512^3) against its plain version, then timed."""
+    import torch
+    from tpufdtd_torch.ops import stencil_step as A
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    grid = tt.Grid3D(MAIN_N, MAIN_N, MAIN_N)
+    cur, prev, target = (torch.randn(grid.padded_shape, generator=gen, device=dev)
+                         for _ in range(3))
+    got = A.leapfrog_step(cur, prev, 1.5, target.clone(), grid=grid, dt=CHECK_DT)
+    want = A.leapfrog_step_ref(cur, prev, 1.5, target.clone(), grid=grid, dt=CHECK_DT)
+    torch.cuda.synchronize()
+    err = compare(f"A {MAIN_N}^3 order 4 m scalar", got, want, 2 * cur - prev, target,
+                  interior_mask(grid, dev))
+    del got, want
+    ms = cuda_ms(lambda: A.leapfrog_step(cur, prev, 1.5, target, grid=grid, dt=1e-3), 20)
+    plain = cuda_ms(lambda: A.leapfrog_step_ref(cur, prev, 1.5, target, grid=grid, dt=1e-3), 3)
+    bms, by = bound_a(grid, False)
+    print(f"  A at {MAIN_N}^3 order 4 m scalar (kernel_cuda's mode): kernel {ms:.4f} ms/step,"
+          f" plain {plain:.4f} ms/step, bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+
+
+def phase_checkpoint(tt, dev):
+    """The main path (fast ring, kernel B) checkpointed at step CKPT_STEP and
+    resumed from the file on a fresh Simulator: u_N-1 and u_N bitwise the
+    unbroken 50-step run. Returns the launches per mode of the checkpointed
+    run and the resume."""
+    from tpufdtd_torch import checkpoint as ck
+
+    nsteps = 50
+    grid, m, src, coords, u0 = main_config(tt)
+    cfg = tt.SimConfig(dt=0.001, nsteps=nsteps)
+    sim = tt.Simulator(grid, cfg, m, coords, device=dev)
+    ref = sim.extract_state(sim.run(sim.prepare_state(u0, u0), src, nsteps))
+    with tempfile.TemporaryDirectory() as tmp:
+        fmt = tmp + "/ckpt_{step:06d}.npz"
+        reset_counts()
+        t0 = time.perf_counter()
+        ck.run_with_checkpoints(sim, u0, u0, nsteps, src, checkpoint_every=CKPT_STEP,
+                                path_fmt=fmt)
+        t1 = time.perf_counter()
+        p, c = ck.resume(fmt.format(step=CKPT_STEP), cfg, m, nsteps, src, coords, device=dev)
+        t2 = time.perf_counter()
+        modes = launches_by_mode()
+        path = fmt.format(step=CKPT_STEP)
+        size = os.path.getsize(path)
+        t3 = time.perf_counter()
+        mid = ck.load(path)
+        t4 = time.perf_counter()
+        ck.save(tmp + "/again.npz", mid)
+        t5 = time.perf_counter()
+    check_launches("checkpoint", modes, [r"B R=2 K=\d float32 m"], [r"B R=2 K=2 float32 m"])
+    same = np.array_equal(c, ref[1]) and np.array_equal(p, ref[0])
+    print(f"  checkpoint at step {CKPT_STEP} of {nsteps} ({MAIN_N}^3, fast ring): resumed u_N-1,"
+          f" u_N bitwise the unbroken run: {same}; launches {modes}; file {size / 2**20:.1f} MiB,"
+          f" save {t5 - t4:.2f} s, load {t4 - t3:.2f} s; run with checkpoints {t1 - t0:.2f} s,"
+          f" resume {t2 - t1:.2f} s (wall, host copies included)")
+    if not same or mid.u_target is not None:
+        raise AssertionError(f"checkpoint: bitwise {same}, u_target {mid.u_target is not None}")
+    return modes
+
+
+def box_ic(tt, grid, seed):
+    """Zero levels with a random 96^3 box around the grid's centre, which
+    straddles the shard cuts of the x4 and 2 x 2 meshes (mostly zero, so
+    the npz files compress)."""
+    rng = np.random.default_rng(seed)
+    c, b = grid.halo + MAIN_N // 2, 48
+    out = []
+    for _ in range(2):
+        a = np.zeros(grid.padded_shape, np.float32)
+        a[c - b: c + b, c - b: c + b, c - b: c + b] = rng.standard_normal((2 * b,) * 3)
+        out.append(a)
+    return out
+
+
+def phase_sharded_checkpoint(tt, dev):
+    """x4 order 4 at 512^3 x 50 checkpointed at SHARDED_CKPT_STEP (gathered to
+    the global layout), then resumed on a 2 x 2 mesh and on the single
+    device, against the unbroken x4 run: bitwise without sources, within
+    SOURCED_RESUME_TOL with the source. Returns the launches per mode."""
+    from tpufdtd_torch import checkpoint as ck
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    nsteps = 50
+    grid, m, src, coords, _ = main_config(tt)
+    up, uc = box_ic(tt, grid, 17)
+    cfg = tt.SimConfig(dt=0.001, nsteps=nsteps)
+    reset_counts()
+    for sourced in (False, True):
+        c_xy = coords if sourced else None
+        s_tab = src if sourced else None
+        x4 = make_mesh(devices=[dev] * 4)
+        sim = ShardedSimulator(grid, cfg, m, x4, c_xy)
+        st, ms, pk = sim.prepare(up, uc, m)
+        if not isinstance(st, dict):
+            raise AssertionError("sharded checkpoint: not the sharded sweep")
+        p0, c0 = sim.extract_state(sim.run(st, ms, pk, s_tab, nsteps))
+        with tempfile.TemporaryDirectory() as tmp:
+            fmt = tmp + "/ck_{step:06d}.npz"
+            pa, ca = ck.run_sharded_with_checkpoints(ShardedSimulator(grid, cfg, m, x4, c_xy), up,
+                                                     uc, m, nsteps, s_tab,
+                                                     checkpoint_every=SHARDED_CKPT_STEP,
+                                                     path_fmt=fmt)
+            path = fmt.format(step=SHARDED_CKPT_STEP)
+            runs = {"x4 checkpointed": (pa, ca),
+                    "2x2 resumed": ck.resume_sharded(path, cfg, m, make_mesh(shape=(2, 2),
+                                                                             devices=[dev] * 4),
+                                                     nsteps, s_tab, c_xy),
+                    "single device resumed": ck.resume(path, cfg, m, nsteps, s_tab, c_xy,
+                                                       device=dev)}
+        for name, (p, c) in runs.items():
+            same = np.array_equal(c, c0) and np.array_equal(p, p0)
+            l2 = max(rel_l2(c, c0), rel_l2(p, p0))
+            need_bitwise = not sourced or name == "x4 checkpointed"
+            print(f"  sharded checkpoint {MAIN_N}^3, step {SHARDED_CKPT_STEP} of {nsteps},"
+                  f" {'one source' if sourced else 'no sources'}: {name} vs the unbroken x4 run:"
+                  f" bitwise {same}, rel-L2 {l2:.3e}")
+            if not (same if need_bitwise else l2 <= SOURCED_RESUME_TOL):
+                raise AssertionError(f"sharded checkpoint {name}: bitwise {same}, rel-L2 {l2}")
+    modes = launches_by_mode()
+    check_launches("sharded checkpoint", modes, [r"B R=2 K=\d float32 m"],
+                   [r"B R=2 K=2 float32 m"])
+    return modes
+
+
+# phase 16: name -> (layered, storage, launches allowed and needed)
+OVERLAP_PATHS = {"x4 order 4": (False, "float32", r"B R=2 K=\d float32 m"),
+                 "x4 order 4 layered": (True, "float32", r"B R=2 K=\d float32 w"),
+                 "x4 order 4 bf16": (False, "bfloat16", r"B R=2 K=\d bfloat16 m")}
+
+
+def phase_overlap(tt, dev, smi, name, layered, storage, pattern):
+    """The x4 order-4 sharded sweep at 512^3 x 50 with overlap "on" and
+    "off": u_N-1 and u_N bitwise, and both ms/step (45 timed steps after 5
+    warmup, median of 3 spans). Returns the launches per mode of the "on"
+    run."""
+    from tpufdtd_torch.harness import media
+    from tpufdtd_torch.harness.perf_sharded import timed_span
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    nsteps, warm = 50, 5
+    grid, m, src, coords, u0 = main_config(tt)
+    if layered:
+        m = media.layered(grid)
+    out = {}
+    for overlap in ("off", "on"):
+        cfg = tt.SimConfig(dt=0.001, nsteps=nsteps, storage_dtype=storage, overlap=overlap)
+        sim = ShardedSimulator(grid, cfg, m, make_mesh(devices=[dev] * 4), coords)
+        if sim.sweep is None or sim.sweep.overlap != (overlap == "on"):
+            raise AssertionError(f"overlap {name}: {overlap} did not select its schedule")
+        state, m_sh, terms = sim.prepare(u0, u0, m)
+        reset_counts()
+        state = sim.run(state, m_sh, terms, src[:warm], warm)
+        secs, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:],
+                                                      nsteps - warm))
+        modes = launches_by_mode()
+        check_launches(f"overlap {name} {overlap}", modes, [pattern], [pattern])
+        levels = sim.extract_state(state)
+        times = [secs]
+        for _ in range(2):
+            t, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:],
+                                                       nsteps - warm))
+            times.append(t)
+        out[overlap] = (levels, float(np.median(times)) / (nsteps - warm) * 1e3, modes)
+        if overlap == "on" and not layered and storage == "float32":
+            overlap_breakdown(sim, state)
+    same = all(np.array_equal(a, b) for a, b in zip(out["on"][0], out["off"][0]))
+    print(f"  overlap {name} {MAIN_N}^3 x {nsteps}, four shards on the card: on bitwise off:"
+          f" {same}; on {out['on'][1]:.4f} ms/step, off {out['off'][1]:.4f} ms/step"
+          f" (on / off {out['on'][1] / out['off'][1]:.3f}); launches on {out['on'][2]}, off"
+          f" {out['off'][2]} [{smi}]")
+    if not same:
+        raise AssertionError(f"overlap {name}: on differs from off")
+    return out["on"][2]
+
+
+def overlap_breakdown(sim, state):
+    """ms per K-block of the parts of an overlapped block, each timed alone
+    with CUDA events over 20 repeats on the run's final state: the four
+    interior slabs, the x exchange, the eight edge slabs, the band copies
+    (save and put back), and the whole block (Sweep._block)."""
+    sw = sim.sweep
+    states = state["sweep"]
+    Us = [[st[0] for st in col] for col in states]
+    shards = [(dx, dy) for dx in range(sw.ndx) for dy in range(sw.ndy)]
+    h, M, E, nxk = sw.h, sw.M, sw.E, sw.lgrid.nx
+    bands = (slice(h + E, h + E + M), slice(h + nxk - E - M, h + nxk - E))
+
+    def edges():
+        for dx, dy in shards:
+            sw._kern(*states[dx][dy], dx, dy, sw.K, "lo")
+            sw._kern(*states[dx][dy], dx, dy, sw.K, "hi")
+
+    def band_copies():
+        for dx, dy in shards:
+            spare = states[dx][dy][1]
+            for b in bands:
+                spare[:, b].copy_(spare[:, b].clone())
+
+    parts = {
+        "interior slabs": lambda: [sw._kern(*states[dx][dy], dx, dy, sw.K, "mid")
+                                   for dx, dy in shards],
+        "x exchange": lambda: sw._exchange_x(Us),
+        "edge slabs": edges,
+        "band copies": band_copies,
+        "serial kernels": lambda: [sw._kern(*states[dx][dy], dx, dy, sw.K) for dx, dy in shards],
+        "overlapped block": lambda: sw._block([list(col) for col in states], sw.K),
+    }
+    out = {k: cuda_ms(fn, 20) for k, fn in parts.items()}
+    print(f"  overlap per block of K={sw.K}, each part alone: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+
+
+def phase_trace(tt, dev, smi):
+    """TRACE_STEPS main-path steps (512^3, fast ring, kernel B) under
+    tracing.trace: the device's busy share of the window, the union of its
+    kernel and copy intervals over the window's wall time (the profiler's
+    own host cost included), and the device time by kernel. Returns the
+    launches per mode. The profiler slows the host's launches, so the same
+    number of steps just before the traced window is timed without it, and
+    the traced busy time is also given as a share of that."""
+    import torch
+
+    from tpufdtd_torch.utils import tracing
+
+    n0, n1 = 6, 6 + TRACE_STEPS
+    grid, m, src, coords, u0 = main_config(tt, nsteps=n1 + TRACE_STEPS)
+    sim = tt.Simulator(grid, tt.SimConfig(dt=0.001, nsteps=n1 + TRACE_STEPS), m, coords,
+                       device=dev)
+    state = sim.run(sim.prepare_state(u0, u0), src[:n0], n0)
+    # the window before, without the profiler: CUDA events around it
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    tracing.sync(state)
+    start.record()
+    state = sim.run(state, src[n0:n1], TRACE_STEPS)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    reset_counts()
+    with tempfile.TemporaryDirectory() as logdir:
+        with tracing.trace(logdir) as prof:
+            t0 = time.perf_counter()
+            state = sim.run(state, src[n1:], TRACE_STEPS)
+            tracing.sync(state)
+            span_us = (time.perf_counter() - t0) * 1e6
+        trace_mib = os.path.getsize(os.path.join(logdir, "trace.json")) / 2**20
+    modes = launches_by_mode()
+    check_launches("trace", modes, [r"B R=2 K=\d float32 m"], [r"B R=2 K=2 float32 m"])
+    busy = tracing.device_busy_us(prof)
+    by_name = sorted(((getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0), e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)[:6]
+    print(f"  trace of {TRACE_STEPS} main-path steps ({MAIN_N}^3, K={sim.engine.sweep_k}):"
+          f" device busy {busy / 1e3:.3f} ms of a {span_us / 1e3:.3f} ms window,"
+          f" busy share {busy / span_us:.4f}, idle share {1 - busy / span_us:.4f}; the same"
+          f" {TRACE_STEPS} steps before it without the profiler {plain_ms:.3f} ms (CUDA events),"
+          f" the traced busy time's share of that {busy / 1e3 / plain_ms:.4f}; device ms by"
+          f" name: " + ", ".join(f"{k[:48]} {t / 1e3:.3f}" for t, k in by_name if t)
+          + f"; Chrome trace {trace_mib:.1f} MiB; launches {modes} [{smi}]")
+    if not busy > 0:
+        raise AssertionError("trace: torch.profiler recorded no device time")
+    return modes
+
+
+def phase_bench(tt, dev):
+    """The port's bench line (harness/bench.py): the 128^3 gate and 512^3 x 50
+    on the default path. Returns the launches per mode."""
+    from tpufdtd_torch.harness import bench
+
+    reset_counts()
+    line = bench.measure(dev)
+    modes = launches_by_mode()
+    check_launches("bench", modes, [r"A R=2 float32 scalar", r"B R=2 K=\d float32 m"],
+                   [r"A R=2 float32 scalar", r"B R=2 K=2 float32 m"])
+    print(f"[18 bench] {json.dumps(line)}")
+    if not line["correctness_pass"]:
+        raise AssertionError(f"bench: the gate failed, rel-L2 {line['rel_l2_vs_oracle_128']}")
+    return modes
+
+
 def print_tiles_a():
     """Kernel A's block shape per mode (ops/stencil_step.tile_for), with its
     blocks per SM, cells per thread and shared memory."""
@@ -1001,7 +1347,7 @@ def print_tiles_a():
 
 
 def run_phases(tt, dev, smi):
-    """Phases 3-12; returns the kernels line's entries."""
+    """Phases 3-18; returns the kernels line's entries."""
     from tpufdtd_torch.ops.stencil_sweep import MODE_RADII
     from tpufdtd_torch.stepper import K_AUTO, MODE_K  # MODE_K: the w and bf16 modes' K
 
@@ -1055,6 +1401,19 @@ def run_phases(tt, dev, smi):
     for name, spec in SHARDED_PATHS.items():
         paths[name] = phase_sharded(tt, dev, smi, name, *spec)
     SINGLE.clear()
+    print(f"[13 kernel_cuda (the reference ABI) {MAIN_N}^3 x 50]")
+    paths["kernel_cuda"], a4_main = phase_kernel_cuda(tt, dev, smi)
+    print(f"[14 checkpoint and resume on the main path {MAIN_N}^3 x 50]")
+    paths["checkpoint"] = phase_checkpoint(tt, dev)
+    print(f"[15 sharded checkpoint {MAIN_N}^3 x 50: x4, resumed on 2 x 2 and one device]")
+    paths["sharded checkpoint"] = phase_sharded_checkpoint(tt, dev)
+    print(f"[16 sharded sweep overlap on against off {MAIN_N}^3 x 50, four shards on the card]")
+    for name, spec in OVERLAP_PATHS.items():
+        paths[f"overlap {name}"] = phase_overlap(tt, dev, smi, name, *spec)
+    print(f"[17 trace of {TRACE_STEPS} main-path steps]")
+    paths["trace"] = phase_trace(tt, dev, smi)
+    print("[18 bench]")
+    paths["bench"] = phase_bench(tt, dev)
 
     def launched(pattern):
         """Launches of the modes matching `pattern`, per path that ran any."""
@@ -1094,6 +1453,8 @@ def run_phases(tt, dev, smi):
               for (r, s, mk), v in a_bf16.items()}
     a_mode[f"R=4, float32, scalar m, a {a_shard} shard"] = a_new(4, "float32", "scalar",
                                                                  a4_shard)
+    a_mode[f"R=2, float32, scalar m, {MAIN_N}^3"] = {
+        **a4_main, "library_ms": None, "launches": paths["kernel_cuda"]["A R=2 float32 scalar"]}
     kernels = [
         {"name": "leapfrog_step_zsplit", "route": "cuda", "source": step,
          "replaces": "tpufdtd/ops/stencil_pallas_z.py:148", "mode": f"R=2, scalar m, {GATE_N}^3",
@@ -1143,6 +1504,7 @@ def main() -> int:
         return 1
     import tpufdtd_torch as tt
     from tpufdtd_torch.ops import _build
+    from tpufdtd_torch.utils.peaks import smi_line
 
     dev = torch.device("cuda", 0)
     smi = smi_line()

@@ -5,6 +5,7 @@ equal to the JAX package's."""
 import dataclasses
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -180,3 +181,19 @@ def test_import_without_jax():
         "assert not any(k == 'tpufdtd' or k.startswith('tpufdtd.') for k in sys.modules)\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_every_module_imports_without_jax():
+    """Every module of the port, and chip_smoke.py, imports with JAX
+    unimportable and pulls in nothing of tpufdtd."""
+    code = (
+        "import importlib, pkgutil, sys; sys.modules['jax'] = None\n"
+        "import tpufdtd_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(tpufdtd_torch.__path__,"
+        " 'tpufdtd_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert 'tpufdtd_torch.harness.bench' in names and len(names) > 25, names\n"
+        "assert not any(k == 'tpufdtd' or k.startswith('tpufdtd.') for k in sys.modules)\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)

@@ -355,7 +355,8 @@ def test_launch_failure_raises(dev):
     # a depth the library does not build: the C entry's code raises
     code = _build.library().tpufdtd_sweep(
         U.data_ptr(), out.data_ptr(), None, 16, 16, 16, g.halo, 2, 5, 1, 0, 64, 8, 32,
-        0, 0, 0, 0, _build.coeff_array([0.0] * 16), torch.cuda.current_stream().cuda_stream)
+        0, 0, 0, 0, g.padded_shape[0], _build.coeff_array([0.0] * 16),
+        torch.cuda.current_stream().cuda_stream)
     with pytest.raises(ValueError, match="depth K = 5"):
         _build.check(code, "sweep_fused")
     # more x-chunks than a grid may have blocks along z: the launch fails
@@ -513,3 +514,152 @@ def test_sharded_per_step_on_card_matches_single_device(dev):
     ring1 = tt.simulate_ring(up, uc, m, g, cfg, src, coords, device=dev)
     for a, b in zip(ring, ring1):
         assert np.array_equal(a, b)
+
+
+# ---- the reference ABI, checkpoints and the sharded sweep's overlap -----------
+
+
+@pytest.mark.parametrize("storage,with_w", [("float32", False), ("float32", True),
+                                            ("bfloat16", False)])
+def test_kernel_b_on_x_slabs_is_bitwise_whole_arrays(dev, storage, with_w):
+    """Kernel B on x-slab views of larger two-level arrays (the overlap's
+    slabs; the C entry's level stride) computes bit for bit what it computes
+    on contiguous copies of the slabs, and writes nothing outside the
+    slab's interior."""
+    big = tt.Grid3D(60, 24, 40)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    U = torch.randn((2,) + big.padded_shape, generator=gen, device=dev).to(getattr(torch, storage))
+    out = torch.zeros_like(U)
+    a, b = 7, 7 + 30 + 2 * big.halo
+    g = tt.Grid3D(30, 24, 40)
+    w = None
+    if with_w:
+        w_big = torch.as_tensor(B.w_stream(big, DT, media.layered(big)), device=dev)
+        w = w_big[a:b]
+    B.sweep_fused(U[:, a:b], out[:, a:b], grid=g, dt=DT, m_val=1.5, k_fuse=2, w=w,
+                  frozen_hi=2, frozen_ylo=1)
+    want = torch.zeros((2,) + g.padded_shape, device=dev, dtype=U.dtype)
+    B.sweep_fused(U[:, a:b].contiguous(), want, grid=g, dt=DT, m_val=1.5, k_fuse=2,
+                  w=None if w is None else w.contiguous(), frozen_hi=2, frozen_ylo=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, a:b], want)
+    rest = torch.ones(out.shape[1], dtype=torch.bool, device=dev)
+    rest[a + g.halo: b - g.halo] = False
+    assert not bool(out[:, rest].any())
+
+
+def test_kernel_cuda_on_card(dev):
+    """The reference ABI on kernel A: every exit slot bitwise simulate_ring
+    on the card and within the gate of the f64 truth."""
+    from tpufdtd_torch.compat import Profiler, kernel_cuda
+
+    g = tt.Grid3D(48, 40, 36)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    u = np.zeros((3,) + g.padded_shape, np.float32)
+    src = tt.ricker_table(12, 1, 0.001)
+    coords = tt.default_source_coords(1, 48, 40, 36)
+    timers = Profiler()
+    A.reset_counts()
+    kernel_cuda(m, src, coords, u, 47, 0, 39, 0, 35, 0, 0.001, 0.1, 0.1, 0.1, 0.0, 0.0, 0.0,
+                0, 0, 11, 0, timers=timers, device=dev)
+    assert A.launches() == 12 and A.launches("plain") == 0 and timers.section0 > 0
+    z = np.zeros(g.padded_shape, np.float32)
+    ring = tt.simulate_ring(z, z, m, g, tt.SimConfig(nsteps=12), src, coords, device=dev)
+    truth = tt.truth_run_ring(z, z, m, g, 0.001, 12, src, coords, device=dev)
+    # (u_{N-1}, u_N, u_{N-2}) sit in slots time_M % 3, (time_M + 1) % 3, (time_M + 2) % 3
+    for slot, want, t in zip((11 % 3, 12 % 3, 13 % 3), ring, truth):
+        assert np.array_equal(u[slot], want)
+        assert np.sqrt(((u[slot] - t) ** 2).sum() / (t**2).sum()) < 1e-4
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+    """The fast ring on kernel B checkpointed at step 6 (a multiple of K)
+    and resumed from the file on a fresh Simulator: bitwise the unbroken
+    run."""
+    from tpufdtd_torch import checkpoint as ck
+
+    g = tt.Grid3D(48, 40, 36)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    u0 = np.zeros(g.padded_shape, np.float32)
+    src = tt.ricker_table(14, 1, 0.001)
+    coords = tt.default_source_coords(1, 48, 40, 36)
+    cfg = tt.SimConfig(nsteps=14)
+    sim = tt.Simulator(g, cfg, m, coords, device=dev)
+    ref = sim.extract_state(sim.run(sim.prepare_state(u0, u0), src, 14))
+    fmt = str(tmp_path / "ck_{step:06d}.npz")
+    B.reset_counts()
+    ck.run_with_checkpoints(sim, u0, u0, 14, src=src, checkpoint_every=6, path_fmt=fmt)
+    p, c = ck.resume(fmt.format(step=6), cfg, m, 14, src=src, src_coords=coords, device=dev)
+    assert B.launches() > 0 and B.launches("plain") == 0
+    assert np.array_equal(c, ref[1]) and np.array_equal(p, ref[0])
+
+
+def _overlap_run(dev, overlap, storage="float32", layered=False, nsteps=7):
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    g = tt.Grid3D(128, 48, 40)
+    m = media.layered(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    up, uc = _zero_rim_pair(g, 8)
+    src = tt.ricker_table(nsteps, 1, 0.001)
+    coords = np.array([[6.43, 2.0, 1.8]], np.float32)  # x = 64.3 cells: shards 1 | 2
+    cfg = tt.SimConfig(nsteps=nsteps, storage_dtype=storage, overlap=overlap)
+    sim = ShardedSimulator(g, cfg, m, make_mesh(devices=[dev] * 4), coords)
+    assert sim.sweep.overlap == (overlap == "on")
+    st, ms, pk = sim.prepare(up, uc, m)
+    return sim.extract_state(sim.run(st, ms, pk, src, nsteps))
+
+
+@pytest.mark.parametrize("storage,layered", [("float32", False), ("float32", True),
+                                             ("bfloat16", False)])
+def test_overlap_on_card_is_bitwise_off(dev, storage, layered):
+    on = _overlap_run(dev, "on", storage, layered)
+    off = _overlap_run(dev, "off", storage, layered)
+    assert all(np.array_equal(a, b) for a, b in zip(on, off))
+
+
+def test_overlap_interior_slab_does_not_wait_on_the_exchange(dev, monkeypatch):
+    """The x exchange is held back on its side stream (a device sleep before
+    its copies): the interior slabs' kernels finish while it still sleeps,
+    so their launch waits on the y exchange only; the edge slabs wait for
+    the exchange, and the result is bitwise the serial order's."""
+    marks = {}
+
+    def monkey(sw):
+        real_x, real_kern = sw._exchange_x, sw._kern
+
+        def slow_exchange(Us):
+            torch.cuda._sleep(1_000_000_000)  # ~0.5 s at the H100's clock
+            real_x(Us)
+            marks["x"] = torch.cuda.Event()
+            marks["x"].record()
+
+        def kern(U, out, dx, dy, kk, part="all"):
+            r = real_kern(U, out, dx, dy, kk, part)
+            if part == "mid":
+                marks["mid"] = torch.cuda.Event()
+                marks["mid"].record()
+            return r
+
+        monkeypatch.setattr(sw, "_exchange_x", slow_exchange)
+        monkeypatch.setattr(sw, "_kern", kern)
+
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    g = tt.Grid3D(128, 48, 40)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    up, uc = _zero_rim_pair(g, 9)
+    sims = {}
+    for overlap in ("on", "off"):
+        sim = ShardedSimulator(g, tt.SimConfig(nsteps=2, overlap=overlap), m,
+                               make_mesh(devices=[dev] * 4))
+        if overlap == "on":
+            monkey(sim.sweep)
+        st, ms, pk = sim.prepare(up, uc, m)
+        torch.cuda.synchronize()
+        st = sim.run(st, ms, pk, None, 2)  # one overlapped block
+        if overlap == "on":
+            marks["mid"].synchronize()
+            assert not marks["x"].query(), "the interior slabs waited on the x exchange"
+        torch.cuda.synchronize()
+        sims[overlap] = sim.extract_state(st)
+    assert all(np.array_equal(a, b) for a, b in zip(sims["on"], sims["off"]))

@@ -1,5 +1,6 @@
 """tpufdtd_torch's harness and utilities: the correctness ladder on the CPU,
-the CSV schema, the models, and the CUDA-only perf path."""
+the CSV schema, the models, the CUDA-only perf path and bench, the speed
+test, the TORCHFDTD_* knobs and tracing."""
 
 import numpy as np
 import pytest
@@ -8,10 +9,12 @@ import torch
 from tpufdtd.utils import csvio as jcsv
 from tpufdtd.utils import metrics as jmetrics
 from tpufdtd.utils import stats as jstats
-from tpufdtd_torch.harness import cli
+from tpufdtd_torch.harness import bench, cli
 from tpufdtd_torch.harness.correctness import error_scan, run_correctness
 from tpufdtd_torch.harness.perf import run_benchmark, state_bytes
-from tpufdtd_torch.utils import csvio, metrics, stats
+from tpufdtd_torch.harness.speedtest import run_speed_test
+from tpufdtd_torch.utils import csvio, metrics, stats, tracing
+from tpufdtd_torch.utils.envcfg import RuntimeConfig, runtime_config
 from tpufdtd_torch.utils.peaks import detect_peaks
 
 
@@ -152,3 +155,71 @@ def test_correctness_ladder_takes_the_order(order):
                               verbose=False, device="cpu")
     assert [r.method for r in reports] == ["torch", "cuda"]
     assert all(r.passed for r in reports)
+
+
+# ---- speed test, runtime knobs, tracing ---------------------------------------
+
+
+def test_speed_test_runs_both_backends_on_the_cpu():
+    """run_speed_test gives (size, t_a, t_b, t_a / t_b) per size, as the JAX
+    package's; on the CPU both backends run plain versions (host times)."""
+    out = run_speed_test(sizes=(12,), timesteps=8, device="cpu", verbose=False)
+    assert len(out) == 1
+    size, ta, tb, speedup = out[0]
+    assert size == 12 and ta > 0 and tb > 0 and speedup == pytest.approx(ta / tb)
+
+
+def test_runtime_config_reads_the_environment(monkeypatch):
+    for key in ("TORCHFDTD_BACKEND", "TORCHFDTD_STORAGE", "TORCHFDTD_TFUSE", "TORCHFDTD_PAIR"):
+        monkeypatch.delenv(key, raising=False)
+    assert runtime_config() == RuntimeConfig("cuda", "float32", 0, "auto")
+    monkeypatch.setenv("TORCHFDTD_BACKEND", "torch")
+    monkeypatch.setenv("TORCHFDTD_STORAGE", "bfloat16")
+    monkeypatch.setenv("TORCHFDTD_TFUSE", "2")
+    monkeypatch.setenv("TORCHFDTD_PAIR", "off")
+    assert runtime_config() == RuntimeConfig("torch", "bfloat16", 2, "off")
+    monkeypatch.setenv("TORCHFDTD_BACKEND", "pallas")
+    with pytest.raises(ValueError, match="TORCHFDTD_BACKEND"):
+        runtime_config()
+
+
+def test_cli_flags_override_the_environment(monkeypatch, capsys):
+    """The CLI prints the runtime config it runs; TORCHFDTD_STORAGE reaches
+    the correctness ladder unless --storage overrides it."""
+    monkeypatch.setenv("TORCHFDTD_STORAGE", "bfloat16")
+    monkeypatch.setenv("TORCHFDTD_BACKEND", "cuda")
+    seen = []
+    monkeypatch.setattr(cli, "detect_peaks", lambda dev: type(
+        "P", (), {"name": "cpu", "hbm_gbps": 1.0, "fp32_gflops": 1.0, "hbm_gib": 1.0})())
+    monkeypatch.setattr(cli, "run_correctness", lambda sizes, steps, backends, **kw: seen.append(
+        (tuple(backends), kw["storage_dtype"])) or [])
+    assert cli.main(["--sizes", "8", "--skip-perf", "--device", "cpu"]) == 0
+    assert cli.main(["--sizes", "8", "--skip-perf", "--device", "cpu", "--storage", "float32",
+                     "--backends", "cuda"]) == 0
+    assert seen == [(("torch", "cuda"), "bfloat16"), (("cuda",), "float32")]
+    assert "Runtime config: backends=torch,cuda storage=bfloat16 t_fuse=0 pair=auto" in \
+        capsys.readouterr().out
+
+
+def test_tracing_on_the_cpu(tmp_path):
+    """sync is a no-op for CPU tensors; timed_section accumulates; trace
+    writes a Chrome trace and traces nothing without a logdir; the CPU run
+    has no device events, so its device busy time is 0."""
+    state = {"sweep": (torch.zeros(3), torch.ones(2))}
+    tracing.sync(state)
+    timers = {}
+    for _ in range(2):
+        with tracing.timed_section(timers, "step", fence=state):
+            torch.ones(8).sum()
+    assert timers["step"] > 0
+    with tracing.trace(None) as prof:
+        assert prof is None
+    with tracing.trace(str(tmp_path)) as prof:
+        torch.ones(64).cumsum(0)
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert tracing.device_busy_us(prof) == 0.0
+
+
+def test_bench_refuses_the_cpu():
+    with pytest.raises(RuntimeError):
+        bench.measure("cpu")

@@ -195,12 +195,61 @@ def test_run_timed_and_random_state_on_cpu():
                        coords, device="cpu")
     st = sim.prepare_state_random(0)
     assert isinstance(st, dict) and torch.equal(st["sweep"][0], sim.prepare_state_random(0)["sweep"][0])
-    st, secs, clock = sim.run_timed(st, tt.ricker_table(8, 1, 0.001))
-    assert clock == "host" and secs > 0
+    st, secs = sim.run_timed(st, tt.ricker_table(8, 1, 0.001))
+    assert sim.last_clock == "host" and secs > 0
     mx, nan = sim.state_field_stats(st)
     assert mx > 0 and not nan
     zero = sim.prepare_state_random(0, scale=0.0)
     assert sim.state_field_stats(zero) == (0.0, False)
+
+
+@pytest.mark.parametrize("ring", ["auto", "exact"])
+def test_run_timed_takes_the_jax_call_and_timing_repeat(ring):
+    """F4 (ROADMAP Queue 3): run_timed(state, src, timing_repeat=q) returns
+    (state, seconds) as the JAX package's does; q > 1 times a stretched
+    span on a copy, and the physics state is bitwise that of q = 1."""
+    g, _ = _grids(12, 12, 12)
+    coords = tt.default_source_coords(1, 12, 12, 12)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    src = tt.ricker_table(9, 1, 0.001)
+    up, uc = _fast_ic(g)
+    outs = []
+    for q in (1, 3):
+        sim = tt.Simulator(g, tt.SimConfig(nsteps=9, warmup_steps=2, ring=ring), m, coords,
+                           device="cpu")
+        state, secs = sim.run_timed(sim.prepare_state(up, uc), src, timing_repeat=q)
+        assert secs > 0 and sim.last_clock == "host"
+        assert isinstance(state, dict) == (ring == "auto")
+        outs.append(sim.extract_state(state))
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))
+    # and the same physics as an untimed run of all the steps
+    sim = tt.Simulator(g, tt.SimConfig(nsteps=9, ring=ring), m, coords, device="cpu")
+    st = sim.run(sim.prepare_state(up, uc), src[:2], 2)
+    plain = sim.extract_state(sim.run(st, src[2:], 7))
+    assert all(np.array_equal(a, b) for a, b in zip(outs[0], plain))
+
+
+@pytest.mark.parametrize("backend,jax_backend", [("torch", "jnp"), ("cuda", "jnp")])
+def test_get_step_fn_matches_the_jax_package(backend, jax_backend):
+    """get_step_fn(grid, dt, backend) is step(u_cur, u_prev, m, target), as
+    the JAX package's; one step of each against the JAX jnp step on the same
+    inputs, rel-L2 <= TOL (independent f32 implementations)."""
+    import jax.numpy as jnp
+
+    g, gj = _grids(10, 12, 14)
+    rng = np.random.default_rng(4)
+    cur, prev, tgt = (rng.standard_normal(g.padded_shape).astype(np.float32) for _ in range(3))
+    m = (1.5 + 0.5 * rng.random(g.padded_shape)).astype(np.float32)
+    step = tt.get_step_fn(g, 0.01, backend)
+    got = step(torch.tensor(cur), torch.tensor(prev), torch.tensor(m), torch.tensor(tgt))
+    want = np.asarray(tf.get_step_fn(gj, 0.01, jax_backend)(
+        jnp.asarray(cur), jnp.asarray(prev), jnp.asarray(m), jnp.asarray(tgt)))
+    assert rel_l2(got.numpy(), want) < TOL
+    rim = np.ones(g.padded_shape, bool)
+    rim[g.interior_slices()] = False
+    assert np.array_equal(got.numpy()[rim], tgt[rim])
+    with pytest.raises(ValueError):
+        tt.get_step_fn(g, 0.01, "pallas")
 
 
 def test_cuda_device_without_card_raises():

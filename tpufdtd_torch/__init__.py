@@ -11,5 +11,13 @@ plain eager step. This package imports torch and NumPy, never JAX.
 from .config import Grid3D, SimConfig, halo_for_order, stencil_weights  # noqa: F401
 from .oracle import oracle_run, oracle_run_ring, oracle_step, truth_run_ring  # noqa: F401
 from .sources import SourceTerm, build_source_term, inject  # noqa: F401
-from .stepper import Simulator, make_engine, run_scan, simulate, simulate_ring  # noqa: F401
+from .stepper import (  # noqa: F401
+    Simulator,
+    get_step_fn,
+    make_engine,
+    run_scan,
+    simulate,
+    simulate_ring,
+)
 from .wavelets import default_source_coords, ricker, ricker_table  # noqa: F401
+from . import checkpoint, compat  # noqa: F401

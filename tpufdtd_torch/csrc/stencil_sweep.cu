@@ -53,18 +53,22 @@ int copy_margins(const T* uin, T* uout, int nx, int ny, int nz, int h, int flo, 
 // ty x tz column over xc x-planes. frozen_lo/hi and frozen_ylo/yhi freeze
 // that many interior planes at each x end and rows at each y end (0: none):
 // the kernel runs on the view without them, and they get u_n in both
-// output levels. Returns cudaGetLastError() after the launches; 1000 +
-// radius for a radius this mode is not built for, 2000 + k for a depth.
+// output levels. nxpa is the padded x extent of the arrays uin and uout
+// are cut from (nx + 2 * halo for whole arrays): their level stride is
+// nxpa planes, so both may be x-slabs of larger two-level arrays (the
+// sharded sweep's overlap). Returns cudaGetLastError() after the
+// launches; 1000 + radius for a radius this mode is not built for, 2000 +
+// k for a depth.
 extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx,
                              int ny, int nz, int halo, int radius, int k,
                              int isotropic, int bf16_storage, int xc, int ty,
                              int tz, int frozen_lo, int frozen_hi, int frozen_ylo,
-                             int frozen_yhi, const float* coeffs, void* stream) {
+                             int frozen_yhi, int nxpa, const float* coeffs, void* stream) {
   const Coeffs c = coeffs_from_host(coeffs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool iso = isotropic != 0;
   const int nzp = nz + 2 * halo;
-  const int64_t sx = (int64_t)(ny + 2 * halo) * nzp, sl = (int64_t)(nx + 2 * halo) * sx;
+  const int64_t sx = (int64_t)(ny + 2 * halo) * nzp, sl = (int64_t)nxpa * sx;
   const int64_t off = frozen_lo * sx + (int64_t)frozen_ylo * nzp;
   const int vnx = nx - frozen_lo - frozen_hi, vny = ny - frozen_ylo - frozen_yhi;
   if (frozen_lo || frozen_hi || frozen_ylo || frozen_yhi) {
@@ -75,7 +79,7 @@ extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx
                        halo, frozen_lo, frozen_hi, frozen_ylo, frozen_yhi, sx, sl, s);
     if (e != 0 || vnx <= 0 || vny <= 0) return e;
   }
-  const sweep::Geom g{vnx, vny, nz, halo, ty, tz, xc, 0, 0, nx + 2 * halo, ny + 2 * halo};
+  const sweep::Geom g{vnx, vny, nz, halo, ty, tz, xc, 0, 0, nxpa, ny + 2 * halo};
   const float* wv = w ? w + off : nullptr;
   if (bf16_storage) {
     const bf16* bin = static_cast<const bf16*>(uin) + off;

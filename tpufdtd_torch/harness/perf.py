@@ -103,7 +103,7 @@ def run_benchmark(
         def timed(seed, table):
             t0 = time.perf_counter()
             state = sim.prepare_state_random(seed)
-            _, secs, _clock = sim.run_timed(state, table)
+            _, secs = sim.run_timed(state, table)
             torch.cuda.synchronize(dev)
             return secs, time.perf_counter() - t0
 

@@ -40,8 +40,9 @@ _SIGNATURES = {
     "tpufdtd_step_policy": ([_I, _I, _I, ctypes.POINTER(_I)], None),
     # uin, uout, w (or null), nx, ny, nz, halo, radius, k, isotropic,
     # bf16_storage, xc, ty, tz, frozen_lo, frozen_hi, frozen_ylo, frozen_yhi,
+    # nxpa (the arrays' padded x extent: their level stride in planes),
     # coeffs, stream
-    "tpufdtd_sweep": ([_P, _P, _P] + [_I] * 15 + [_P, _P], _I),
+    "tpufdtd_sweep": ([_P, _P, _P] + [_I] * 16 + [_P, _P], _I),
     # radius, k, ty, tz, bf16_storage, w_stream -> the bytes of shared
     # memory tpufdtd_sweep requests per block
     "tpufdtd_sweep_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),

@@ -27,7 +27,10 @@ the result [u_{n+K-1}, u_{n+K}] goes to a second buffer `out` (not in
 place: CUDA blocks run in parallel, and one block's halo is another's
 output). Both buffers must carry the same frozen rims, which the kernel
 never writes. For every K, level 0 of the result is u_{n+K-1} and level 1
-is u_{n+K}; there is no role flip at K = 1.
+is u_{n+K}; there is no role flip at K = 1. U and out may also be x-slabs
+`A[:, a:b]` of larger two-level arrays, whose levels lie the larger array's
+planes apart: the C entry takes that level stride (the sharded sweep's
+overlap runs its three slabs so).
 
 Frozen margins (`frozen_lo`, `frozen_hi`, `frozen_ylo`, `frozen_yhi`,
 default 0), the TPU sweep's: interior planes [0, frozen_lo) and
@@ -266,6 +269,14 @@ def sweep_fused_ref(U, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None,
     return torch.stack([prev, cur]).to(U.dtype)
 
 
+def _is_slab(t) -> bool:
+    """t[2, a, nyp, nzp] is x-planes of a contiguous [2, A, nyp, nzp] with
+    A >= a: each level contiguous, the levels A planes apart."""
+    plane = t.shape[2] * t.shape[3]
+    return (t.stride()[1:] == (plane, t.shape[3], 1) and t.stride(0) % plane == 0
+            and t.stride(0) >= t.shape[1] * plane)
+
+
 def _check(U, out, grid: Grid3D, m_val, k_fuse: int, w, frozen):
     shape = (2,) + tuple(grid.padded_shape)
     for name, t in (("U", U), ("out", out)):
@@ -276,11 +287,15 @@ def _check(U, out, grid: Grid3D, m_val, k_fuse: int, w, frozen):
                              f" {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}; got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() and not _is_slab(t):
+            raise ValueError(f"{name} must be contiguous, or an x-slab of a contiguous"
+                             " two-level array")
     if out.device != U.device:
         raise ValueError(f"out is on {out.device}, U on {U.device}")
-    if out.data_ptr() == U.data_ptr():
+    if out.stride(0) != U.stride(0):
+        raise ValueError(f"U and out must have one level stride; got {U.stride(0)},"
+                         f" {out.stride(0)}")
+    if out.untyped_storage().data_ptr() == U.untyped_storage().data_ptr():
         raise ValueError("out must be a separate buffer from U")
     if not supported(grid):
         raise ValueError(f"the sweep kernel takes radius {RADII} (orders 2-8); got order {grid.order}")
@@ -308,7 +323,9 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
                 frozen_lo: int = 0, frozen_hi: int = 0, frozen_ylo: int = 0,
                 frozen_yhi: int = 0):
     """[u_{n-1}, u_n] in U -> [u_{n+K-1}, u_{n+K}] in out's interior;
-    returns out. U and out are f32 or bf16; `w` (f32, padded shape) selects
+    returns out. U and out are f32 or bf16, whole two-level arrays or
+    x-slabs of them (`A[:, a:b]`, the levels of one stride); `w` (f32,
+    padded shape, contiguous) selects
     the heterogeneous-medium mode, and m_val is then ignored. The frozen
     margins (module docstring) get u_n in both levels. CPU tensors take the
     plain version; CUDA tensors launch the kernel, and a failed launch
@@ -349,7 +366,8 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
         code = lib.tpufdtd_sweep(
             U.data_ptr(), out.data_ptr(), None if w is None else w.data_ptr(),
             grid.nx, grid.ny, grid.nz, grid.halo, R, k_fuse, int(_isotropic(grid)),
-            int(U.dtype == torch.bfloat16), *tile, *frozen, coeffs,
+            int(U.dtype == torch.bfloat16), *tile, *frozen,
+            U.stride(0) // (U.shape[2] * U.shape[3]), coeffs,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "sweep_fused")

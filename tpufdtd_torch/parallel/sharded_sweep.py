@@ -37,13 +37,38 @@ Counterpart of tpufdtd/parallel/sharded_sweep.py:
     so it is never exchanged.
 
 M <= H: an edge shard's frozen margin is global rim, which is H deep. So the
-depth is capped at K <= H/R + 1 = 3 at orders 2-4. The JAX package's
-`kern_overlap` (exchange under the interior slab's kernel) is not ported:
-`SimConfig.overlap` is accepted and selects no code.
+depth is capped at K <= H/R + 1 = 3 at orders 2-4.
+
+Exchange/compute overlap (the JAX package's `kern_overlap`,
+tpufdtd/parallel/sharded_sweep.py:487-593). The x exchange rewrites the
+extended planes [-R, M) and [nxk - M, nxk - M + D), and K stages carry a
+value at most D planes, so planes [E, nxk - E) with E = 2D - R of a block's
+result do not depend on this block's x exchange. A full block (kk = K)
+then runs in three x-slabs, each with an Mb = M plane discard margin:
+  * the interior slab, true region [E, nxk - E), computed from the array
+    before the x exchange on the compute stream, while the exchange's
+    `copy_`s run on a side stream of each device after the y exchange (CUDA
+    events order them). Its results read the extended planes [M, nxk - M)
+    only, which the exchange does not write; its view also holds pad
+    planes beyond those, which the exchange may be rewriting meanwhile, and
+    kernel B carries them through without reading them into a result;
+  * after the exchange has landed (the compute stream waits on its event),
+    the two edge slabs [0, E) and [nxk - E, nxk), with (M, 0) and (0, M)
+    frozen margins on the global low and high edge shards.
+Kernel B writes its whole slab, discard margins included, so the interior
+slab's result in the Mb planes next to each edge slab's true region is
+saved before the edge slabs run and put back after. Every true-region value
+comes from the same inputs through the same arithmetic as in the serial
+order, so the block is bitwise the serial one, sources included. Eligible
+as in the JAX package: overlap != "off", more than one x-shard, K >= 2 and
+nxk - 2E >= 8. "on" runs it whenever eligible; "auto" runs it where every
+shard has a device of its own and keeps the serial order where shards share
+a device (ROADMAP Queue 3, "Deliberate: the overlap on one card").
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -143,6 +168,11 @@ class SweepShard:
         self.dtype = getattr(torch, cfg.storage_dtype)
         self.lgrid = dataclasses.replace(grid, nx=self.nxl + 2 * self.M,
                                          ny=self.nyl + 2 * self.My)
+        self.E = 2 * K * self.R - self.R
+        self.overlap = (cfg.overlap != "off" and self.ndx > 1 and K >= 2
+                        and self.lgrid.nx - 2 * self.E >= 8
+                        and (cfg.overlap == "on" or mesh.cards == mesh.size))
+        self._side = {}  # per CUDA device: the stream of the overlapped x exchange
         self.w = None
         if m_ref is not None:
             w_ref = stencil_sweep.w_stream(grid, cfg.dt, m_ref)
@@ -277,13 +307,71 @@ class SweepShard:
 
         return case(dx, self.ndx, M) + case(dy, self.ndy, My)
 
-    def _kern(self, U, out, dx: int, dy: int, kk: int):
+    def _kern(self, U, out, dx: int, dy: int, kk: int, part: str = "all"):
+        """Kernel B on shard (dx, dy)'s block ("all"), or on one x-slab of it
+        for the overlap (module docstring), in views of U and out: "mid"
+        (true region [E, nxk - E)), "lo" ([0, E)) or "hi" ([nxk - E, nxk)),
+        each with an M-plane discard margin on its inner sides, where it
+        freezes nothing; an outer side keeps the block's frozen margin."""
+        h, M, E, nxk = self.h, self.M, self.E, self.lgrid.nx
+        a, b = {"all": (0, nxk + 2 * h), "mid": (E - M, nxk - E + M + 2 * h),
+                "lo": (0, E + M + 2 * h), "hi": (nxk - E - M, nxk + 2 * h)}[part]
         flo, fhi, fylo, fyhi = self.frozen(dx, dy)
+        if part in ("mid", "hi"):
+            flo = 0
+        if part in ("mid", "lo"):
+            fhi = 0
         return stencil_sweep.sweep_fused(
-            U, out, grid=self.lgrid, dt=self.cfg.dt, m_val=self.m_val, k_fuse=kk,
-            w=None if self.w is None else self.w[dx][dy], frozen_lo=flo, frozen_hi=fhi,
+            U[:, a:b], out[:, a:b], grid=dataclasses.replace(self.lgrid, nx=b - a - 2 * h),
+            dt=self.cfg.dt, m_val=self.m_val, k_fuse=kk,
+            w=None if self.w is None else self.w[dx][dy][a:b], frozen_lo=flo, frozen_hi=fhi,
             frozen_ylo=fylo, frozen_yhi=fyhi,
         )
+
+    def _side_stream(self, dev) -> torch.cuda.Stream:
+        if dev not in self._side:
+            self._side[dev] = torch.cuda.Stream(device=dev)
+        return self._side[dev]
+
+    def _block(self, states, kk: int):
+        """One kk-step block of every shard: [u_{n-1}, u_n] in each state's
+        U -> [u_{n+kk-1}, u_{n+kk}] in its spare, serially (y exchange, x
+        exchange, kernel B per shard) or, for a full block with the overlap
+        on, in three slabs with the x exchange under the interior slab."""
+        shards = [(dx, dy) for dx in range(self.ndx) for dy in range(self.ndy)]
+        Us = [[states[dx][dy][0] for dy in range(self.ndy)] for dx in range(self.ndx)]
+        self._exchange_y(Us)
+        if not (self.overlap and kk == self.K):
+            self._exchange_x(Us)
+            for dx, dy in shards:
+                self._kern(*states[dx][dy], dx, dy, kk)
+            return
+        cards = [d for d in dict.fromkeys(self.mesh.devices) if d.type == "cuda"]
+        for d in cards:  # the side stream starts after the y exchange
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(d))
+            self._side_stream(d).wait_event(ready)
+        for dx, dy in shards:
+            self._kern(*states[dx][dy], dx, dy, kk, "mid")
+        with contextlib.ExitStack() as side:
+            for d in cards:
+                side.enter_context(torch.cuda.stream(self._side_stream(d)))
+            self._exchange_x(Us)
+            landed = {}
+            for d in cards:
+                landed[d] = torch.cuda.Event()
+                landed[d].record(self._side_stream(d))
+        for d in cards:
+            torch.cuda.current_stream(d).wait_event(landed[d])
+        h, M, E, nxk = self.h, self.M, self.E, self.lgrid.nx
+        bands = (slice(h + E, h + E + M), slice(h + nxk - E - M, h + nxk - E))
+        for dx, dy in shards:
+            U, spare = states[dx][dy]
+            saved = [spare[:, b].clone() for b in bands]
+            self._kern(U, spare, dx, dy, kk, "lo")
+            self._kern(U, spare, dx, dy, kk, "hi")
+            for b, v in zip(bands, saved):
+                spare[:, b].copy_(v)
 
     @staticmethod
     def _correct(U, ent, s_blk):
@@ -308,13 +396,10 @@ class SweepShard:
         done = 0
         while done < nsteps:
             kk = min(self.K, nsteps - done)
-            Us = [[states[dx][dy][0] for dy in range(self.ndy)] for dx in range(self.ndx)]
-            self._exchange_y(Us)
-            self._exchange_x(Us)
+            self._block(states, kk)
             for dx in range(self.ndx):
                 for dy in range(self.ndy):
                     U, spare = states[dx][dy]
-                    self._kern(U, spare, dx, dy, kk)
                     ent = self.entries[dx][dy] if have_src else None
                     if ent is not None:
                         tab = tables[self.mesh.device(dx, dy)]

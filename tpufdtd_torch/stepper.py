@@ -41,6 +41,7 @@ Engines:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional, Tuple
 
@@ -334,6 +335,7 @@ class Simulator:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.engine = make_engine(grid, cfg, m, src_coords, device=self.device)
+        self.last_clock = None  # run_timed's clock: "cuda_event" or "host"
 
     def prepare_state(self, u_prev, u_cur, u_target=None):
         """Device state from host ICs; the third level defaults to a copy of
@@ -387,28 +389,49 @@ class Simulator:
             return state
         return self.engine.run_scan(state, self._src_slice(src, 0, n), n)
 
-    def run_timed(self, state, src: Optional[np.ndarray] = None):
+    @staticmethod
+    def _copy(state):
+        """A copy of a state on the device, for a timing run that must not
+        advance the physics."""
+        if isinstance(state, dict):
+            return {"sweep": tuple(x.clone() for x in state["sweep"])}
+        return tuple(x.clone() for x in state)
+
+    def run_timed(self, state, src: Optional[np.ndarray] = None, timing_repeat: int = 1):
         """The reference timing convention: cfg.warmup_steps untimed steps,
-        then the rest timed (cuda.cu:232). Returns (state, seconds, clock):
-        on a CUDA device the time is taken with CUDA events around the timed
-        span (clock "cuda_event"); elsewhere it is host wall time (clock
-        "host"), which is no device time."""
+        then the rest timed (cuda.cu:232). Returns (state, seconds), as the
+        JAX package's run_timed does; `last_clock` names the clock of the
+        last call: "cuda_event" on a CUDA device (events around the timed
+        span), else "host" (wall time, no device time).
+
+        timing_repeat = q > 1 times q * rest steps on a throwaway copy of
+        the state, the source rows tiled, and returns that time / q; the
+        state then advances the real rest steps untimed, so the physics
+        does not depend on q."""
         w = min(self.cfg.warmup_steps, self.cfg.nsteps)
         rest = self.cfg.nsteps - w
+        q = max(1, int(timing_repeat))
         state = self.engine.run_scan(state, self._src_slice(src, 0, w), w)
         main_src = self._src_slice(src, w, self.cfg.nsteps)
+        timed = self._copy(state) if q > 1 else state
+        timed_src = main_src if main_src is None or q == 1 else main_src.repeat(q, 1)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize(self.device)
             start.record()
-            state = self.engine.run_scan(state, main_src, rest)
+            timed = self.engine.run_scan(timed, timed_src, rest * q)
             end.record()
             torch.cuda.synchronize(self.device)
-            return state, start.elapsed_time(end) / 1e3, "cuda_event"
-        t0 = time.perf_counter()
-        state = self.engine.run_scan(state, main_src, rest)
-        return state, time.perf_counter() - t0, "host"
+            secs, self.last_clock = start.elapsed_time(end) / 1e3, "cuda_event"
+        else:
+            t0 = time.perf_counter()
+            timed = self.engine.run_scan(timed, timed_src, rest * q)
+            secs, self.last_clock = time.perf_counter() - t0, "host"
+        if q == 1:
+            return timed, secs
+        del timed
+        return self.engine.run_scan(state, main_src, rest), secs / q
 
 
 def simulate_ring(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
@@ -427,3 +450,16 @@ def simulate(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
     """One-shot run; returns host (u_{N-1}, u_N)."""
     P, C, _ = simulate_ring(u_prev, u_cur, m, grid, cfg, src, src_coords, device=device)
     return P, C
+
+
+def get_step_fn(grid: Grid3D, dt: float, backend: str):
+    """step(u_cur, u_prev, m, target) -> target with u_{n+1} in its
+    interior, for tensors of the padded shape and m a padded f32 tensor or
+    a scalar: kernel A on "cuda" (its plain version for CPU tensors), the
+    eager step on "torch". The counterpart of the JAX package's
+    get_step_fn (its "pallas" and "jnp")."""
+    if backend == "cuda":
+        return functools.partial(stencil_step.leapfrog_step, grid=grid, dt=dt)
+    if backend == "torch":
+        return functools.partial(stencil_torch.leapfrog_step, grid=grid, dt=dt)
+    raise ValueError(f"unknown backend {backend!r}; expected 'torch' or 'cuda'")

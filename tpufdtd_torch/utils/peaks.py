@@ -9,6 +9,7 @@ data-sheet numbers; a device that is not CUDA, or not in the table, raises.
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 
 import torch
 
@@ -34,3 +35,13 @@ def detect_peaks(device="cuda") -> DevicePeaks:
         if key in props.name:
             return DevicePeaks(props.name, gbps, gflops, props.total_memory / (1 << 30))
     raise RuntimeError(f"no published peaks on record for {props.name!r}")
+
+
+def smi_line(index: int = 0) -> str:
+    """The card's name and power limit as nvidia-smi gives them, e.g.
+    "NVIDIA H100 80GB HBM3, 700.00 W": a card may be set below its maximum
+    power and then runs slower, so every time kept stands beside it."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
