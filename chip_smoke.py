@@ -13,8 +13,11 @@ exits non-zero without a result line:
   3b. kernel A at order 12 (leapfrog_step_pallas's role) at 512^3, scalar
      and per-point m, checked then timed;
   4. kernel B (K fused steps) at radius 2 against K plain steps, for
-     K = 1..k_max, at the main path's 512^3 among other shapes;
-  4b. kernel B at radius 1, 3 and 4 (orders 2, 6, 8) the same way;
+     K = 1..k_max (K = 5-6 on its deep form), at the main path's 512^3
+     among other shapes, each K timed there, with its plain version at
+     K_AUTO and the deep form's K;
+  4b. kernel B at radius 1, 3 and 4 (orders 2, 6, 8) the same way (the
+     deep form at radius 1: K = 5-6, at radius 3: K = 3-4);
   5. correctness gate: simulate() at 128^3 x 50 through kernel A against
      the torch-f64 truth (rel-L2 < 1e-4), counting kernel A's launches;
   6. main path: Simulator at 512^3 x 50, one Ricker source, fast ring on
@@ -26,7 +29,8 @@ exits non-zero without a result line:
      with t_fuse = 2 (kernel B at radius 4, K = 2: packed_fused2's role),
      each with its launches, levels, rel-L2 and times;
   8. kernel modes against their plain versions: kernel B with the w stream,
-     in bf16 and in bf16 with w at radius 1-3 and every K (the w stream
+     in bf16 and in bf16 with w at radius 1-3 and every K, the deep form's
+     included, timed with their plain versions at MODE_K and the deep K (the w stream
      filled with the scalar mode's scale bitwise equal to the scalar mode
      at radius 2), kernel A in bf16 at radius 2, 4 and 6; timed at 512^3;
   9. heterogeneous paths on the layered medium (harness/media.py): the
@@ -36,9 +40,16 @@ exits non-zero without a result line:
   10. bf16 paths at 512^3 x 50: order 4 uniform (kernel B, bf16), order 4
      layered (kernel B, bf16 + w), order 12 uniform (kernel A, bf16), each
      against the f64 truth (< 5e-2) and the f32 run of the same path;
+  10b. an explicit t_fuse at the deep form's depths, 512^3 x 50: order 2 at
+     t_fuse 6, order 4 at 5 and 6, order 6 at 3 and 4, and order 4 at 6 and
+     order 6 at 4 on the layered medium (w), in bf16 and in bf16 + w; each
+     against the f64 truth (computed once per order and medium since phase
+     6), its launches per depth, ms/step beside the same path at t_fuse = 0,
+     and in bf16 its error beside the register form's deepest K;
   11. kernel B with frozen margins (sweep_fused's frozen_lo/hi/ylo/yhi, the
      sharded sweep's edge shards) against its plain version at radius 1-2,
-     K = 1-3, in every mode, margins on x and y, frozen cells bitwise u_n;
+     K = 1-3, and radius 2, K = 6 (the deep form), in every mode, margins on
+     x and y, frozen cells bitwise u_n;
      at the shard shapes of phase 12, timed there;
   12. sharded paths at 512^3 x 50, four shards on this one card through
      tpufdtd_torch.parallel (every exchange and freeze case; no scaling
@@ -105,8 +116,8 @@ F32_FLOPS_PER_S = 67e12
 
 def ptxas_summary(log: str) -> list:
     """(kernel, registers, stack bytes, spill stores, spill loads) of every
-    kernel in nvcc's -Xptxas -v output; kernel B's instantiations are named
-    by their template arguments."""
+    kernel in nvcc's -Xptxas -v output; kernel B's instantiations (its deep
+    form's "B deep") are named by their template arguments."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -115,7 +126,8 @@ def ptxas_summary(log: str) -> list:
             b = re.search(r"kernelILi(\d)ELi(\d)ELb(\d)E(f|13__nv_bfloat16)Lb(\d)E", cur)
             a = re.search(r"leapfrog_xsweepILi(\d)E(f|13__nv_bfloat16)Li(\d)E", cur)
             if b:
-                cur = (f"B R={b[1]} K={b[2]} {'iso' if b[3] == '1' else 'exact'}"
+                cur = (f"B{' deep' if 'sweep_deep' in cur else ''} R={b[1]} K={b[2]}"
+                       f" {'iso' if b[3] == '1' else 'exact'}"
                        f" {'f32' if b[4] == 'f' else 'bf16'} {'w' if b[5] == '1' else 'm'}")
             elif a:
                 cur = f"A R={a[1]} {'f32' if a[2] == 'f' else 'bf16'} {a[3]} blocks/SM"
@@ -587,19 +599,38 @@ def phase_main(tt, dev, smi):
     del state
     if nan or not np.isfinite(c).all() or mx == 0.0:
         raise AssertionError(f"main-path field: max {mx}, nan {nan}")
-    _, c_true, _ = tt.truth_run_ring(u0, u0, m, sim.grid, 0.001, nsteps, src, coords, device=dev)
+    c_true = truth(tt, dev, sim, u0, m, src, coords)
     l2 = rel_l2(c, c_true)
     print(f"  {n}^3 x 50 u_N: rel-L2 {l2:.3e} vs f64 truth, max |u| {mx:.4e}")
     if not l2 < GATE_TOL:
         raise AssertionError(f"main-path rel-L2 {l2} >= {GATE_TOL}")
     ms = report_times(tt, dev, smi, sim, secs, src)
     SINGLE["order 4"] = {"c": c, "truth": c_true, "ms": ms}
+    AUTO[4, False, "float32"] = (ms, l2)
     return b
 
 
-def report_times(tt, dev, smi, sim, secs, src, plain=True, label=""):
-    """Median of 4 timed spans on "cuda" (the checked run's and three from
-    random states) and, with `plain`, one on the plain "torch" backend:
+TRUTHS = {}  # (order, layered): u_N of the f64 truth of the 512^3 x 50 run
+# (order, layered, storage): (ms/step, rel-L2 to the truth) of the path at
+# t_fuse = 0 (K_AUTO, MODE_K)
+AUTO = {}
+
+
+def truth(tt, dev, sim, u0, m, src, coords):
+    """u_N of the f64 truth of a 512^3 x 50 run, computed once per order and
+    medium (the uniform m = 1.5 or the layered one): storage dtype and
+    fusion depth do not change it."""
+    key = (sim.grid.order, bool(np.any(m != m.flat[0])))
+    if key not in TRUTHS:
+        TRUTHS[key] = tt.truth_run_ring(u0, u0, m, sim.grid, 0.001, sim.cfg.nsteps, src, coords,
+                                        device=dev)[1]
+    return TRUTHS[key]
+
+
+def report_times(tt, dev, smi, sim, secs, src, plain=True, label="", spans=4):
+    """Median of `spans` timed spans on "cuda" (the checked run's and the
+    rest from random states) and, with `plain`, one on the plain "torch"
+    backend:
     ms/step, Gcell/s and % of HBM peak, each beside the nvidia-smi line.
     The HBM model is the perf harness's (metrics.optimized_bytes): 12 B per
     point per step in f32 and 6 B in bf16 (read u_n and u_{n-1}, write
@@ -614,7 +645,7 @@ def report_times(tt, dev, smi, sim, secs, src, plain=True, label=""):
     bytes_pt = metrics.optimized_bytes(sim.cfg.storage_dtype, sim.engine.field_reads_per_step)
     peaks = detect_peaks(dev)
     times = [secs]
-    for seed in range(3):
+    for seed in range(spans - 1):
         st = sim.prepare_state_random(seed)
         _, s = sim.run_timed(st, src)
         times.append(s)
@@ -650,13 +681,16 @@ FUSED2_LAUNCHES = ([r"B R=4 K=[12] float32 m"], [r"B R=4 K=2 float32 m", r"B R=4
 
 
 def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="float32",
-               tol=GATE_TOL, plain=True, f32_twin=False, t_fuse=0, keep=None):
+               tol=GATE_TOL, plain=True, f32_twin=False, t_fuse=0, keep=None, spans=4):
     """Phase 6's run at another order, medium (the layered medium when
     `layered`), storage dtype or fusion depth (t_fuse > 0): launches,
     levels, rel-L2 against the f64 truth (< tol) and times; with
     `f32_twin`, also the rel-L2 against the f32 run of the same path. With
     `keep`, u_N, the truth and ms/step stay in SINGLE[keep] for phase 12.
-    Returns (launches per mode, cuda ms/step)."""
+    The truth is computed once per order and medium (`truth`); ms/step is
+    the median of `spans` spans (no time with spans = 0), and at t_fuse = 0
+    stays in AUTO with the rel-L2. Returns (launches per mode, cuda ms/step, rel-L2 to
+    the truth)."""
     from tpufdtd_torch.harness import media
 
     n, nsteps = MAIN_N, 50
@@ -680,7 +714,7 @@ def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="
     del state
     if nan or not np.isfinite(c).all() or mx == 0.0:
         raise AssertionError(f"order {order}{label} field: max {mx}, nan {nan}")
-    _, c_true, _ = tt.truth_run_ring(u0, u0, m, sim.grid, 0.001, nsteps, src, coords, device=dev)
+    c_true = truth(tt, dev, sim, u0, m, src, coords)
     l2 = rel_l2(c, c_true)
     twin = ""
     if f32_twin:
@@ -693,10 +727,13 @@ def phase_path(tt, dev, smi, order, allowed, needed, *, layered=False, storage="
           f" max |u| {mx:.4e}, {want_levels} levels")
     if not l2 < tol:
         raise AssertionError(f"order {order}{label} rel-L2 {l2} >= {tol}")
-    ms = report_times(tt, dev, smi, sim, secs, src, plain=plain, label=label)
+    ms = report_times(tt, dev, smi, sim, secs, src, plain=plain, label=label,
+                      spans=spans) if spans else None
     if keep:
         SINGLE[keep] = {"c": c, "truth": c_true, "ms": ms}
-    return modes, ms
+    if not t_fuse and ms is not None:
+        AUTO[order, layered, storage] = (ms, l2)
+    return modes, ms, l2
 
 
 def phase_high_order(tt, dev, smi, order):
@@ -743,6 +780,62 @@ LAYERED_LAUNCHES = {4: ([r"B R=2 K=\d float32 w"],) * 2, 6: ([r"B R=3 K=\d float
 BF16_PATHS = {"order 4": (4, False, [r"B R=2 K=\d bfloat16 m"]),
               "order 4 layered": (4, True, [r"B R=2 K=\d bfloat16 w"]),
               "order 12": (12, False, [r"A R=6 bfloat16 scalar"])}
+
+
+# Phase 10b: an explicit t_fuse at the depths of kernel B's deep form, 512^3 x
+# 50: name -> (order, layered, storage dtype, t_fuse). Each runs beside its
+# path at t_fuse = 0 (K_AUTO or MODE_K, from phases 6-10 or run here), and in
+# bf16 beside its run at the register form's deepest K (stencil_sweep.TILES),
+# where the stepper capped such a t_fuse before the deep form (at order 6 that
+# is the t_fuse = 0 run: MODE_K = 2).
+DEEP_PATHS = {
+    "order 2 t_fuse 6": (2, False, "float32", 6),
+    "order 4 t_fuse 5": (4, False, "float32", 5),
+    "order 4 t_fuse 6": (4, False, "float32", 6),
+    "order 6 t_fuse 3": (6, False, "float32", 3),
+    "order 6 t_fuse 4": (6, False, "float32", 4),
+    "order 4 layered t_fuse 6": (4, True, "float32", 6),
+    "order 4 bf16 t_fuse 6": (4, False, "bfloat16", 6),
+    "order 4 layered bf16 t_fuse 6": (4, True, "bfloat16", 6),
+    "order 6 layered t_fuse 4": (6, True, "float32", 4),
+    "order 6 bf16 t_fuse 4": (6, False, "bfloat16", 4),
+    "order 6 layered bf16 t_fuse 4": (6, True, "bfloat16", 4),
+}
+DEEP_SPANS = 2  # timed spans a deep path (phase 6's paths take 4)
+
+
+def phase_deep_paths(tt, dev, smi):
+    """Phase 10b: each path of DEEP_PATHS against the f64 truth (< 1e-4 in
+    f32, < 5e-2 in bf16), its launches per depth, ms/step beside the same
+    path at t_fuse = 0; bf16's rel-L2 at the depth asked for beside the
+    register form's cap. Returns {name: launches per mode}."""
+    from tpufdtd_torch.ops.stencil_sweep import TILES
+    from tpufdtd_torch.stepper import MODE_K
+
+    out = {}
+    for name, (order, layered, storage, t_fuse) in DEEP_PATHS.items():
+        R = order // 2
+        mode = f"{storage} {'w' if layered else 'm'}"
+        allowed = [rf"B R={R} K=\d {mode}"]
+        tol = BF16_TOL if storage == "bfloat16" else GATE_TOL
+        kw = dict(layered=layered, storage=storage, tol=tol, plain=False)
+        modes, ms, l2 = phase_path(tt, dev, smi, order, allowed, [rf"B R={R} K={t_fuse} {mode}"],
+                                   t_fuse=t_fuse, spans=DEEP_SPANS, **kw)
+        out[name] = modes
+        key = (order, layered, storage)
+        if key not in AUTO:
+            phase_path(tt, dev, smi, order, allowed, allowed, spans=DEEP_SPANS, **kw)
+        auto_ms, auto_l2 = AUTO[key]
+        print(f"  {name}: {ms:.4f} ms/step at K={t_fuse}, {auto_ms:.4f} at t_fuse 0"
+              f" ({ms / auto_ms:.3f} of it) [{smi}]")
+        if storage == "bfloat16":
+            cap = max(k for r, k in TILES if r == R)
+            l2_cap = (auto_l2 if cap == MODE_K else
+                      phase_path(tt, dev, smi, order, allowed, allowed, t_fuse=cap, spans=0,
+                                 **kw)[2])
+            print(f"  {name}: rel-L2 {l2:.3e} vs f64 truth at K={t_fuse}, {l2_cap:.3e} at the"
+                  f" register form's K={cap}")
+    return out
 
 
 # Phase 11: kernel B with frozen margins (the sharded sweep's edge shards)
@@ -804,7 +897,8 @@ def check_frozen(B, grid, U, out, mask, k, w, frozen):
 
 def phase_frozen_margins(tt, dev):
     """Kernel B's frozen margins in every mode at radius 1-2 and K = 1-3,
-    margins on x and y, on small shapes; then at the sharded main path's
+    and at radius 2, K = 6 (the deep form), margins on x and y, on small
+    shapes; then at the sharded main path's
     shard shapes (the 1-D x edge shard, the 2x2 corner shard), and timed at
     the 1-D shard's shape beside the same call without margins. Returns
     the timed mode's {"ms", "plain_ms", "bound_ms", ...}."""
@@ -820,7 +914,7 @@ def phase_frozen_margins(tt, dev):
                          tt.Grid3D(40, 24, 70, order=order)):
                 U, out, mask = _fast_pair(grid, gen, dev, storage)
                 w = _w_stream(B, grid, gen, dev, medium)
-                for k in (1, 2, 3):
+                for k in (1, 2, 3) + ((6,) if radius == 2 else ()):  # 6: the deep form
                     for frozen in ((2, 3, 1, 2), (0, radius * (k - 1) or 1, 3, 0)):
                         worst = max(worst, check_frozen(B, grid, U, out, mask, k, w, frozen))
     # the sharded 512^3 path's shards at order 4, K = 2: M = 2
@@ -1348,8 +1442,11 @@ def print_tiles_a():
 
 def run_phases(tt, dev, smi):
     """Phases 3-18; returns the kernels line's entries."""
-    from tpufdtd_torch.ops.stencil_sweep import MODE_RADII
+    from tpufdtd_torch.ops.stencil_sweep import DEEP_TILES, MODE_RADII
     from tpufdtd_torch.stepper import K_AUTO, MODE_K  # MODE_K: the w and bf16 modes' K
+
+    def deep_ks(radius):  # the deep form's depths at a radius, each timed plain too
+        return [k for r, k in sorted(DEEP_TILES) if r == radius]
 
     print("[2b kernel A block shapes (XC, TY, TZ) per mode]")
     print_tiles_a()
@@ -1358,10 +1455,10 @@ def run_phases(tt, dev, smi):
     print("[3b kernel A at order 12 vs plain]")
     a12 = phase_kernel_a_order12(tt, dev)
     print("[4 kernel B vs plain]")
-    b = {2: phase_kernel_b(tt, dev, 2, [K_AUTO[2]])}
+    b = {2: phase_kernel_b(tt, dev, 2, [K_AUTO[2]] + deep_ks(2))}
     print("[4b kernel B at radius 1, 3 and 4 vs plain]")
     for radius, plain_ks in ((1, [K_AUTO[1]]), (3, [K_AUTO[3]]), (4, sorted({1, 2, K_AUTO[4]}))):
-        b[radius] = phase_kernel_b(tt, dev, radius, plain_ks)
+        b[radius] = phase_kernel_b(tt, dev, radius, plain_ks + deep_ks(radius))
 
     print("[5 correctness gate]")
     launches_a = phase_gate(tt, dev)
@@ -1376,8 +1473,9 @@ def run_phases(tt, dev, smi):
     bm = {}
     for storage, medium in NEW_MODES:
         for radius in MODE_RADII:
-            bm[storage, medium, radius] = phase_kernel_b(tt, dev, radius, [MODE_K],
-                                                         storage, medium)
+            bm[storage, medium, radius] = phase_kernel_b(tt, dev, radius,
+                                                         [MODE_K] + deep_ks(radius), storage,
+                                                         medium)
     a_bf16 = phase_kernel_a_bf16(tt, dev)
     print("[9 heterogeneous paths: the layered medium]")
     for order in (4, 6):
@@ -1393,6 +1491,9 @@ def run_phases(tt, dev, smi):
                                            layered=layered, storage="bfloat16", tol=BF16_TOL,
                                            plain=False, f32_twin=True,
                                            keep="order 4 bf16" if name == "order 4" else None)[0]
+    print(f"[10b explicit t_fuse at the deep form's depths {MAIN_N}^3 x 50]")
+    paths.update(phase_deep_paths(tt, dev, smi))
+    TRUTHS.clear()
     print("[11 kernel B with frozen margins vs plain]")
     frozen = phase_frozen_margins(tt, dev)
     print("[11b kernel A at a shard of the sharded per-step path vs plain]")
@@ -1439,6 +1540,7 @@ def run_phases(tt, dev, smi):
         return {**res, "library_ms": None, "launches": total(rf"A R={radius} {storage} {mkind}")}
 
     sweep = "tpufdtd_torch/csrc/stencil_sweep.cuh"
+    deep = "tpufdtd_torch/csrc/stencil_sweep_deep.cuh"
     step = "tpufdtd_torch/csrc/stencil_step.cu"
     sweep_paths = launched(r"B R=[123] K=\d .*")
     a_paths = launched(r"A R=[1234] .*")
@@ -1449,6 +1551,14 @@ def run_phases(tt, dev, smi):
     for (storage, medium), tag in mode_names.items():
         for r in MODE_RADII:
             sweep_modes[f"{tag} R={r},K={MODE_K}"] = b_new(storage, medium, r)
+    # the deep form (csrc/stencil_sweep_deep.cuh), per mode and depth
+    for r, k in sorted(DEEP_TILES):
+        for (storage, medium), tag in {("float32", "m"): "f32", **mode_names}.items():
+            res = b[r] if (storage, medium) == ("float32", "m") else bm[storage, medium, r]
+            sweep_modes[f"deep {tag} R={r},K={k}"] = {
+                **res[k], "max_abs_err": res["max_abs_err"], "library_ms": None,
+                "source": deep, "launches": total(rf"B R={r} K={k} {storage} {medium}"),
+                "path_launches": launched(rf"B R={r} K={k} {storage} {medium}")}
     a_mode = {f"R={r}, {s}, {mk} m, {MAIN_N}^3": a_new(r, s, mk, v)
               for (r, s, mk), v in a_bf16.items()}
     a_mode[f"R=4, float32, scalar m, a {a_shard} shard"] = a_new(4, "float32", "scalar",

@@ -167,7 +167,7 @@ def test_kernel_b_modes_match_plain(dev, dtype, with_w, radius, k, shape, h):
              with_w)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
 def test_kernel_b_w_of_the_scale_is_bitwise_the_scalar_mode(dev, k):
     """w filled with the scalar mode's own f32 scale: the w path changes
     nothing else (tests/test_sweep.py:527 on the card)."""
@@ -354,10 +354,10 @@ def test_launch_failure_raises(dev):
         B.sweep_fused(U, out, grid=g, dt=1e-3, m_val=1.5, k_fuse=2, tile=(64, 64, 32))
     # a depth the library does not build: the C entry's code raises
     code = _build.library().tpufdtd_sweep(
-        U.data_ptr(), out.data_ptr(), None, 16, 16, 16, g.halo, 2, 5, 1, 0, 64, 8, 32,
+        U.data_ptr(), out.data_ptr(), None, 16, 16, 16, g.halo, 2, 7, 1, 0, 64, 8, 32,
         0, 0, 0, 0, g.padded_shape[0], _build.coeff_array([0.0] * 16),
         torch.cuda.current_stream().cuda_stream)
-    with pytest.raises(ValueError, match="depth K = 5"):
+    with pytest.raises(ValueError, match="depth K = 7"):
         _build.check(code, "sweep_fused")
     # more x-chunks than a grid may have blocks along z: the launch fails
     gx = tt.Grid3D(65600, 8, 8)
@@ -402,7 +402,7 @@ def test_kernel_b_nx_not_a_multiple_of_xc(dev, radius):
     """nx = 300 in x-chunks of 128 (a short third chunk) and of TILES' XC."""
     g = tt.Grid3D(300, 16, 24, order=2 * radius)
     for k in range(1, B.k_max(radius) + 1):
-        _check_b(dev, g, k, tile=(128,) + B.TILES[radius, k][1:])
+        _check_b(dev, g, k, tile=(128,) + B.tile_for(radius, k)[1:])
         _check_b(dev, g, k)
 
 
@@ -414,16 +414,112 @@ def test_smem_bytes_is_what_the_launch_requests(dev):
     from tpufdtd_torch.ops import _build
 
     lib = _build.library()
-    for (r, k), tile in B.TILES.items():
+    for (r, k), tile in {**B.TILES, **B.DEEP_TILES}.items():
+        smem = B.deep_smem_bytes if (r, k) in B.DEEP_TILES else B.smem_bytes
         for storage in ("float32", "bfloat16"):
             for medium in ("m", "w"):
-                want = B.smem_bytes(r, k, tile, storage, medium)
+                want = smem(r, k, tile, storage, medium)
                 got = lib.tpufdtd_sweep_smem(r, k, tile[1], tile[2], int(storage == "bfloat16"),
                                              int(medium == "w"))
                 assert got == want
-        policy = (ctypes.c_int * 2)()
-        lib.tpufdtd_sweep_policy(r, k, policy)
-        assert list(policy) == [B.cells_per_thread(r, k), B.min_blocks(r, k)]
+        if (r, k) in B.TILES:
+            policy = (ctypes.c_int * 2)()
+            lib.tpufdtd_sweep_policy(r, k, policy)
+            assert list(policy) == [B.cells_per_thread(r, k), B.min_blocks(r, k)]
+
+
+# ---- kernel B's deep form (K = 5-6 at R = 1-2, K = 3-4 at R = 3) -------------
+
+
+@pytest.mark.parametrize("dtype,with_w", [(torch.float32, False)] + MODES)
+@pytest.mark.parametrize("radius,k", sorted(B.DEEP_TILES))
+@pytest.mark.parametrize("shape,h", [((64, 64, 64), (0.1, 0.1, 0.1)),
+                                     ((17, 13, 11), (0.1, 0.05, 0.2)),
+                                     ((1100, 12, 20), (0.1, 0.1, 0.1))])
+def test_kernel_b_deep_matches_plain(dev, dtype, with_w, radius, k, shape, h):
+    """The deep form in every mode, isotropic and anisotropic h, on shapes
+    narrower than one block's column and over several x-chunks."""
+    _check_b(dev, tt.Grid3D(*shape, hx=h[0], hy=h[1], hz=h[2], order=2 * radius), k, dtype,
+             with_w)
+
+
+@pytest.mark.parametrize("radius,k", sorted(B.DEEP_TILES))
+@pytest.mark.parametrize("dtype,with_w", [(torch.float32, False), (torch.bfloat16, True)])
+def test_kernel_b_deep_frozen_margins_match_plain(dev, radius, k, dtype, with_w):
+    """Margins on x and y at every deep (R, K): frozen cells bitwise u_n."""
+    g = tt.Grid3D(40, 24, 70, order=2 * radius)
+    frozen = {"frozen_lo": 2, "frozen_hi": 3, "frozen_ylo": 1, "frozen_yhi": 2}
+    gen = torch.Generator(device=dev).manual_seed(9 * k + radius)
+    U = torch.randn((2,) + g.padded_shape, generator=gen, device=dev)
+    mask = _mask(g, dev)
+    U[0][~mask] = U[1][~mask]
+    U = U.to(dtype)
+    w = _w(g, dev, gen) if with_w else None
+    out = U.clone()
+    out[:, mask] = 7.0
+    got = B.sweep_fused(U, out.clone(), grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w, **frozen)
+    want = B.sweep_fused_ref(U, grid=g, dt=DT, m_val=1.5, k_fuse=k, w=w, **frozen)
+    torch.cuda.synchronize()
+    for sl in B.frozen_slices(g, tuple(frozen.values())):
+        assert torch.equal(got[0][sl], U[1][sl]) and torch.equal(got[1][sl], U[1][sl])
+    Uf = U.float()
+    d = Uf[1] - Uf[0]
+    _close(got, want, torch.stack([Uf[1] + (k - 1) * d, Uf[1] + k * d]), out, mask)
+
+
+def test_kernel_b_deep_launch_refusals(dev):
+    """The deep form refuses what it cannot run: a block whose rings need
+    more than 227 KB (before the launch), a depth built in neither form (the
+    C entry's code), and a grid with more x-chunks than a grid may have
+    blocks along z (the launch fails)."""
+    from tpufdtd_torch.ops import _build
+
+    g = tt.Grid3D(16, 16, 16)
+    U = torch.zeros((2,) + g.padded_shape, device=dev)
+    out = U.clone()
+    assert B.deep_smem_bytes(2, 6, (64, 32, 32)) > B.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        B.sweep_fused(U, out, grid=g, dt=1e-3, m_val=1.5, k_fuse=6, tile=(64, 32, 32))
+    g6 = tt.Grid3D(16, 16, 16, order=6)
+    U6 = torch.zeros((2,) + g6.padded_shape, device=dev)
+    out6 = U6.clone()
+    code = _build.library().tpufdtd_sweep(
+        U6.data_ptr(), out6.data_ptr(), None, 16, 16, 16, g6.halo, 3, 5, 1, 0, 64, 16, 32,
+        0, 0, 0, 0, g6.padded_shape[0], _build.coeff_array([0.0] * 16),
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(ValueError, match="depth K = 5"):
+        _build.check(code, "sweep_fused")
+    gx = tt.Grid3D(65600, 8, 8)
+    Ux = torch.zeros((2,) + gx.padded_shape, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        B.sweep_fused(Ux, Ux.clone(), grid=gx, dt=1e-3, m_val=1.5, k_fuse=6, tile=(1, 8, 8))
+
+
+@pytest.mark.parametrize("storage,with_w", [("float32", False), ("bfloat16", True)])
+def test_kernel_b_deep_on_x_slabs_is_bitwise_whole_arrays(dev, storage, with_w):
+    """The deep form (R = 2, K = 6) on x-slab views of larger two-level
+    arrays computes bit for bit what it computes on contiguous copies, and
+    writes nothing outside the slab's interior."""
+    big = tt.Grid3D(60, 24, 40)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    U = torch.randn((2,) + big.padded_shape, generator=gen, device=dev)
+    U = U.to(getattr(torch, storage))
+    out = torch.zeros_like(U)
+    a, b = 7, 7 + 30 + 2 * big.halo
+    g = tt.Grid3D(30, 24, 40)
+    w = None
+    if with_w:
+        w = torch.as_tensor(B.w_stream(big, DT, media.layered(big)), device=dev)[a:b]
+    B.sweep_fused(U[:, a:b], out[:, a:b], grid=g, dt=DT, m_val=1.5, k_fuse=6, w=w,
+                  frozen_hi=2, frozen_ylo=1)
+    want = torch.zeros((2,) + g.padded_shape, device=dev, dtype=U.dtype)
+    B.sweep_fused(U[:, a:b].contiguous(), want, grid=g, dt=DT, m_val=1.5, k_fuse=6,
+                  w=None if w is None else w.contiguous(), frozen_hi=2, frozen_ylo=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, a:b], want)
+    rest = torch.ones(out.shape[1], dtype=torch.bool, device=dev)
+    rest[a + g.halo: b - g.halo] = False
+    assert not bool(out[:, rest].any())
 
 
 # ---- kernel B's frozen margins and the sharded engines -----------------------

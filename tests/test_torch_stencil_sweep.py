@@ -178,8 +178,9 @@ def test_tiles_fit_shared_memory():
     its threads' cells, its staging rings (2 STAGES + R planes in the
     storage dtype, rows padded to 16 B plus 16 B; STAGES + KR f32 planes of
     w) and 2K f32 centre planes within 227 KB (csrc/stencil_sweep.cuh:smem);
-    each radius has K = 1..k_max(R), the depths with R * K <= 8
-    (csrc/stencil_sweep.cuh:built)."""
+    TILES holds the depths with R * K <= 8 (csrc/stencil_sweep.cuh:built),
+    and with the deep form's DEEP_TILES each radius has K = 1..k_max(R),
+    the TPU sweep's caps 6, 6, 4 at R = 1-3 and packed_fused2's 2 at R = 4."""
     assert {r for r, _ in sw.TILES} == set(sw.RADII) == {1, 2, 3, 4}
     for (r, k), tile in sw.TILES.items():
         assert len(tile) == 3
@@ -196,9 +197,10 @@ def test_tiles_fit_shared_memory():
         assert py * pz <= sw.cells_per_thread(r, k) * sw.THREADS
     for r in sw.RADII:
         kmax = sw.k_max(r)
-        assert sorted(k for rr, k in sw.TILES if rr == r) == list(range(1, kmax + 1))
-        assert kmax == max(k for k in range(1, 5) if r * k <= 8)
-    assert [sw.k_max(r) for r in sw.RADII] == [4, 4, 2, 2]
+        assert sorted(k for rr, k in {**sw.TILES, **sw.DEEP_TILES} if rr == r) == list(
+            range(1, kmax + 1))
+        assert max(k for rr, k in sw.TILES if rr == r) == max(k for k in range(1, 5) if r * k <= 8)
+    assert [sw.k_max(r) for r in sw.RADII] == [6, 6, 4, 2]
     assert [sw.cells_per_thread(2, k) for k in (1, 2, 3, 4)] == [7, 4, 8, 6]
     assert [sw.min_blocks(2, k) for k in (1, 2, 3, 4)] == [2, 2, 1, 1]
     assert sw.min_blocks(3, 2) == 2 and sw.min_blocks(4, 2) == 1

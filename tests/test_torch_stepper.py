@@ -321,8 +321,11 @@ ROUTES = {
     "bf16_source_near_boundary": (4, False, "bfloat16", {}, 1.0, True, False),
     "bf16_mixed_rims": (4, False, "bfloat16", {}, None, False, None),
     "bf16_t_fuse_3_order8": (8, False, "bfloat16", {"t_fuse": 3}, None, True, None),
-    # t_fuse 3 at order 6 runs at k_max(3) = 2 in the port (the depth cap)
+    # t_fuse 3 at order 6 runs at K = 3 in both packages (the deep form);
+    # 5-6 is beyond both packages' radius-3 cap of 4 (F5)
     "order6_t_fuse_3": (6, False, "float32", {"t_fuse": 3}, None, True, True),
+    "order6_t_fuse_5": (6, False, "float32", {"t_fuse": 5}, None, True, None),
+    "order6_t_fuse_6": (6, False, "float32", {"t_fuse": 6}, None, True, None),
     "hetero_order6_t_fuse_3": (6, True, "float32", {"t_fuse": 3}, None, True, True),
     "bf16_order6_t_fuse_3": (6, False, "bfloat16", {"t_fuse": 3}, None, True, True),
     "order8_t_fuse_3": (8, False, "float32", {"t_fuse": 3}, None, True, None),
@@ -427,20 +430,23 @@ def test_order8_deepest_k_correction_cubes():
     (6, 3, 2, (24, 24, 32), 11.6), (6, 4, 2, (24, 24, 32), 11.6),
     (4, 6, 4, (16, 16, 128), None), (4, 5, 4, (24, 24, 32), 11.6)])
 def test_explicit_depth_beyond_k_max_runs_at_k_max(order, t_fuse, kmax, shape, src_x):
-    """F3: an explicit t_fuse deeper than kernel B's k_max runs its blocks at
-    k_max, where the JAX package runs it (tests/test_sweep.py:458-465, and
-    923-940: order 4 at t_fuse = 6 on 16 x 16 x 128, no source), within
-    2e-6 of the f64 oracle; the correction cubes must fit at the depth
-    asked for, R (t_fuse - 1) cells around the source."""
+    """F3, and since the deep form (K = 5-6 at orders 2-4, 3-4 at order 6)
+    an explicit t_fuse beyond the register form's depths (kmax here: 4 at
+    orders 2-4, 2 at order 6) runs its blocks at the depth asked for, as
+    the JAX package does (tests/test_sweep.py:458-465, and 923-940: order 4
+    at t_fuse = 6 on 16 x 16 x 128, no source), within 2e-6 of the f64
+    oracle; the correction cubes must fit at that depth, R (t_fuse - 1)
+    cells around the source."""
     g, gj = _grids(*shape, hx=1.0, hy=1.0, hz=1.0, order=order)
     m = np.full(g.padded_shape, 1.5, np.float32)
     coords = None if src_x is None else np.array([[src_x, 12.3, 15.1]], np.float32)
     sim_j = tf.Simulator(gj, tf.SimConfig(dt=0.001, backend="pallas", t_fuse=t_fuse), m, coords)
     assert sim_j.engine.sweep_k == t_fuse
-    _, _, (p, c), (tp, tc) = _run_fast(g, 7, coords, cfg_kw={"t_fuse": t_fuse}, expect_k=kmax)
+    _, _, (p, c), (tp, tc) = _run_fast(g, 7, coords, cfg_kw={"t_fuse": t_fuse},
+                                       expect_k=t_fuse)
     assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL
     if coords is not None:
-        # fits at K = k_max, not at the depth asked for
+        # fits at the register form's depth, not at the depth asked for
         near = np.array([[g.radius * (t_fuse - 1) - 0.5, 12.3, 15.1]], np.float32)
         tt.Simulator(g, tt.SimConfig(dt=0.001, t_fuse=kmax), m, near, device="cpu")
         with pytest.raises(ValueError, match="further inside"):

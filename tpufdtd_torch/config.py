@@ -138,8 +138,8 @@ class SimConfig:
     "torch" runs the plain eager step on any device.
     t_fuse: steps per fused sweep call on the fast ring; 0 picks the port's
     own depth for the order (stepper.K_AUTO), 1..ops.stencil_sweep.k_max(R)
-    asks for exactly that depth, and a deeper t_fuse (up to 6, orders 2-6)
-    fits its correction cubes at that depth and runs at k_max(R).
+    (the JAX package's cap: 6 at orders 2-4, 4 at order 6, 2 at order 8)
+    asks for exactly that depth, and a deeper t_fuse raises.
     ring: "exact" 3-level ring, "fast" 2-level ring (raises when illegal),
     "auto" picks the fast ring when it is legal.
     pair and overlap are accepted for compatibility with the JAX package's

@@ -1,10 +1,12 @@
 // Kernel B (stencil_sweep.cuh): the C entries. Its modes are built in
 // stencil_sweep_<storage>_<medium>_r<radii>.cu: f32 with a scalar m at
 // radius 1-4, f32 with the w stream and bf16 with either at radius 1-3.
+// The deep form (stencil_sweep_deep.cuh, stencil_sweep_deep_<storage>_
+// <medium>.cu) takes the depths the register form does not build.
 
 #include <algorithm>
 
-#include "stencil_sweep.cuh"
+#include "stencil_sweep_deep.cuh"
 
 namespace {
 
@@ -56,9 +58,10 @@ int copy_margins(const T* uin, T* uout, int nx, int ny, int nz, int h, int flo, 
 // output levels. nxpa is the padded x extent of the arrays uin and uout
 // are cut from (nx + 2 * halo for whole arrays): their level stride is
 // nxpa planes, so both may be x-slabs of larger two-level arrays (the
-// sharded sweep's overlap). Returns cudaGetLastError() after the
-// launches; 1000 + radius for a radius this mode is not built for, 2000 +
-// k for a depth.
+// sharded sweep's overlap). (radius, k) runs on the register form where
+// it builds them (sweep::built), else on the deep form (sweep_deep::built).
+// Returns cudaGetLastError() after the launches; 1000 + radius for a radius
+// this mode is not built for, 2000 + k for a depth.
 extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx,
                              int ny, int nz, int halo, int radius, int k,
                              int isotropic, int bf16_storage, int xc, int ty,
@@ -81,6 +84,16 @@ extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx
   }
   const sweep::Geom g{vnx, vny, nz, halo, ty, tz, xc, 0, 0, nxpa, ny + 2 * halo};
   const float* wv = w ? w + off : nullptr;
+  if (!sweep::built(radius, k) && sweep_deep::built(radius, k)) {
+    if (bf16_storage) {
+      const bf16* bin = static_cast<const bf16*>(uin) + off;
+      bf16* bout = static_cast<bf16*>(uout) + off;
+      return (w ? sweep_deep_bf16_w : sweep_deep_bf16_m)(bin, bout, wv, g, radius, k, iso, c, s);
+    }
+    const float* fin = static_cast<const float*>(uin) + off;
+    float* fout = static_cast<float*>(uout) + off;
+    return (w ? sweep_deep_f32_w : sweep_deep_f32_m)(fin, fout, wv, g, radius, k, iso, c, s);
+  }
   if (bf16_storage) {
     const bf16* bin = static_cast<const bf16*>(uin) + off;
     bf16* bout = static_cast<bf16*>(uout) + off;
@@ -100,10 +113,14 @@ extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx
 }
 
 // The dynamic shared memory tpufdtd_sweep requests for a block, in bytes
-// (ops/stencil_sweep.py:smem_bytes must agree).
+// (ops/stencil_sweep.py:smem_bytes, and deep_smem_bytes for the deep form,
+// must agree).
 extern "C" long long tpufdtd_sweep_smem(int radius, int k, int ty, int tz, int bf16_storage,
                                         int w_stream) {
-  return (long long)sweep::smem(radius, k, ty, tz, bf16_storage ? 2 : 4, w_stream != 0);
+  const int esz = bf16_storage ? 2 : 4;
+  if (!sweep::built(radius, k) && sweep_deep::built(radius, k))
+    return (long long)sweep_deep::smem(radius, k, ty, tz, esz);
+  return (long long)sweep::smem(radius, k, ty, tz, esz, w_stream != 0);
 }
 
 // The register policy at (radius, k): cells per thread and blocks per SM

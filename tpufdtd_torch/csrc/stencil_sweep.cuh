@@ -100,9 +100,10 @@ __host__ __device__ constexpr int cells(int R, int K) {
 }
 
 // The (R, K) built: R * K <= 8, so K <= 4 at R <= 2 and K <= 2 at R = 3-4
-// (ops/stencil_sweep.py:k_max). Deeper, the rings leave a column that is
+// (ops/stencil_sweep.py:TILES). Deeper, the rings leave a column that is
 // mostly halo: R = 3 at K = 3-4 and R = 4 at K = 3 ran 3-11 times slower
-// per step than K = 1 at 512^3.
+// per step than K = 1 at 512^3. The deep form (stencil_sweep_deep.cuh)
+// takes the TPU sweep's deeper depths.
 __host__ __device__ constexpr bool built(int R, int K) {
   return R >= 1 && R <= 4 && K >= 1 && K <= 4 && R * K <= 8;
 }

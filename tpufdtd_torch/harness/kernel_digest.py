@@ -2,8 +2,10 @@
 
 Prints one line per mode: kernel A (`leapfrog_step`) at radius 1-6 in f32
 and bf16 with a scalar and a per-point m, and kernel B (`sweep_fused`) at
-every built (R, K) in f32 with a scalar m and in its w and bf16 modes at
-R = 2, K = 2, each with the sha256 of the output's bytes. The levels are
+every (R, K) of its register form in f32 with a scalar m and in its w and
+bf16 modes at R = 2, K = 2, then at every (R, K) of its deep form in f32
+with a scalar m and at R = 2, K = 6 in bf16 with w, each with the sha256 of
+the output's bytes. The levels are
 made on the card from a seeded generator. Two versions of the package
 whose lines agree compute bitwise the same values on these inputs. The
 script imports `tpufdtd_torch` by its absolute name, so PYTHONPATH picks
@@ -50,6 +52,9 @@ def main() -> int:
                       f" {digest(out)}")
     modes = [(r, k, torch.float32, False) for r, k in sorted(B.TILES)]
     modes += [(2, 2, torch.float32, True), (2, 2, torch.bfloat16, False)]
+    deep = sorted(getattr(B, "DEEP_TILES", {}))  # a checkout without the deep form has none
+    modes += [(r, k, torch.float32, False) for r, k in deep]
+    modes += [(2, 6, torch.bfloat16, True)] if deep else []
     for r, k, dtype, with_w in modes:
         g = tt.Grid3D(*SHAPE, order=2 * r)
         gen = torch.Generator(device=dev).manual_seed(10 * r + k)

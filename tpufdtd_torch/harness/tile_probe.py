@@ -1,10 +1,11 @@
-"""Block-shape probe for kernels B (ops/stencil_sweep.TILES) and A
-(ops/stencil_step.TILES).
+"""Block-shape probe for kernels B (ops/stencil_sweep.TILES, and
+DEEP_TILES for its deep form) and A (ops/stencil_step.TILES).
 
 Kernel B:
 
 Times `sweep_fused` at n^3 in one mode (storage dtype, and a scalar m or
-the w stream) for each stencil radius R and fusion depth K over a grid of
+the w stream) for each stencil radius R and fusion depth K (the register
+form's and the deep form's) over a grid of
 block shapes (XC, TY, TZ) that fit (stencil_sweep.tile_fits), with
 CUDA events, and prints each shape's ms per call and ms per step, the fastest shape per
 (R, K) and the one the kernel takes (stencil_sweep.tile_for), then the
@@ -24,6 +25,7 @@ shape's ms per step, and the fastest and the held shape per place.
 Usage (on a CUDA card):
   python -m tpufdtd_torch.harness.tile_probe               # 512^3, f32, scalar m
   python -m tpufdtd_torch.harness.tile_probe --n 256 --radius 3 --k 2
+  python -m tpufdtd_torch.harness.tile_probe --radius 1 2 --k 5 6   # the deep form
   python -m tpufdtd_torch.harness.tile_probe --storage bfloat16 --medium w
   python -m tpufdtd_torch.harness.tile_probe --kernel A    # every place
   python -m tpufdtd_torch.harness.tile_probe --kernel A --place gate shard
@@ -60,14 +62,22 @@ A_TZS = (32, 64, 96, 128)
 def candidates(radius: int, k: int, first=None, storage: str = "float32",
                medium: str = "m") -> list:
     """Block shapes for (radius, k) that fit (stencil_sweep.tile_fits) and
-    give at least half of their threads' cells work; `first` (default
-    TILES[radius, k]) comes first."""
-    out = [stencil_sweep.TILES[radius, k] if first is None else first]
+    give at least half of their threads' cells work (on the deep form: an
+    output column of at least half its threads); `first` (default the
+    kernel's own, tile_for) comes first."""
+    out = [stencil_sweep.tile_for(radius, k) if first is None else first]
     g2 = 2 * k * radius
-    cells = stencil_sweep.cells_per_thread(radius, k) * stencil_sweep.THREADS
+    if (radius, k) in stencil_sweep.DEEP_TILES:
+        def busy(ty, tz):
+            return 2 * ty * tz >= stencil_sweep.DEEP_THREADS
+    else:
+        cells = stencil_sweep.cells_per_thread(radius, k) * stencil_sweep.THREADS
+
+        def busy(ty, tz):
+            return 2 * (ty + g2) * (tz + g2) > cells
     for tile in itertools.product(XCS, TYS, TZS):
         _xc, ty, tz = tile
-        if (2 * (ty + g2) * (tz + g2) > cells and tile not in out
+        if (busy(ty, tz) and tile not in out
                 and stencil_sweep.tile_fits(radius, k, tile, storage, medium)):
             out.append(tile)
     return out
@@ -172,7 +182,8 @@ def _pair(grid: Grid3D, dev, seed: int, dtype, medium: str):
 def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
           medium="m") -> dict:
     """{(radius, k): [(tile, ms per call), ...]} at n^3 in one mode, fastest
-    first, for every (radius, k) of TILES with radius in radii and k in ks."""
+    first, for every (radius, k) of TILES and DEEP_TILES with radius in
+    radii and k in ks."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"the tile probe times CUDA devices only; got {device!r}")
@@ -181,7 +192,8 @@ def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
     for R in radii:
         small = Grid3D(300, 40, 72, order=2 * R)
         grid = Grid3D(n, n, n, order=2 * R)
-        for k in sorted(k for r, k in stencil_sweep.TILES if r == R and k in ks):
+        built = {**stencil_sweep.TILES, **stencil_sweep.DEEP_TILES}
+        for k in sorted(k for r, k in built if r == R and k in ks):
             held_tile = stencil_sweep.tile_for(R, k, storage, medium)
             Us, outs, ws = _pair(small, dev, k, dtype, medium)
             kw = dict(dt=0.03, m_val=1.5, k_fuse=k)
@@ -222,7 +234,8 @@ def main(argv=None):
                    help="kernel A: the places to probe")
     p.add_argument("--n", type=int, default=512, help="cubic grid size")
     p.add_argument("--radius", type=int, nargs="*", default=list(stencil_sweep.RADII))
-    p.add_argument("--k", type=int, nargs="*", default=sorted({k for _, k in stencil_sweep.TILES}))
+    depths = {k for _, k in {**stencil_sweep.TILES, **stencil_sweep.DEEP_TILES}}
+    p.add_argument("--k", type=int, nargs="*", default=sorted(depths))
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--device", default="cuda")
     p.add_argument("--storage", choices=("float32", "bfloat16"), default="float32")

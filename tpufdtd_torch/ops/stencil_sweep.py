@@ -8,8 +8,14 @@ in stencil_sweep.cu, one translation unit per mode and radius range in
 stencil_sweep_<storage>_<medium>_r<radii>.cu): a 2.5-D x-sweep with
 temporal blocking, each thread holding its cells' x-neighbours in register
 rings, the input planes staged through 16-byte cp.async several planes
-ahead, radius 1-4 (orders 2-8) at K = 1..k_max(R). It is bound by device
-memory: K fused steps move 16 B per point in f32 plus each block's halo.
+ahead, radius 1-4 (orders 2-8) at the depths of TILES (R * K <= 8). The
+deep form (csrc/stencil_sweep_deep.cuh, one translation unit per mode in
+stencil_sweep_deep_<storage>_<medium>.cu) takes the TPU sweep's deeper
+depths, those of DEEP_TILES (K = 5-6 at R = 1-2, K = 3-4 at R = 3), with
+every intermediate level in shared-memory rings instead of registers; the C
+entry picks the form by (R, K). Together they run K = 1..k_max(R). Both are
+bound by device memory: K fused steps move 16 B per point in f32 plus each
+block's halo.
 
 Modes, at radius 1-3 as in the TPU sweep (radius 4 takes f32 and a scalar
 m only):
@@ -19,8 +25,8 @@ m only):
   * storage: U and out f32, or both bf16 (half the bytes); compute is f32
     throughout, and only the two output levels are rounded to bf16, once
     per K-block, so a bf16 K-block is not K bf16 steps.
-`smem_bytes` depends on the storage dtype (the staging ring holds it);
-`cells_per_thread` and `k_max` hold for every mode.
+`smem_bytes` and `deep_smem_bytes` depend on the storage dtype (the staging
+rings hold it); `cells_per_thread` and `k_max` hold for every mode.
 
 U = [u_{n-1}, u_n] in the reference layout, shape [2, nx+2H, ny+2H, nz+2H];
 the result [u_{n+K-1}, u_{n+K}] goes to a second buffer `out` (not in
@@ -92,6 +98,20 @@ MODE_TILES = {
 STAGES = 4
 THREADS = 256
 REG_OVERHEAD = 64
+# The deep form's block shape per (R, K), the depths of the TPU sweep
+# (K <= 6 at R <= 2, K <= 4 at R = 3) beyond TILES: (XC, TY, TZ) as above,
+# DEEP_THREADS threads a block, one block an SM (csrc/stencil_sweep_deep.cuh
+# :built); every mode takes the same shape, the fastest in the f32
+# scalar-m mode at 512^3 on an H100 (harness/tile_probe.py; PERF.md).
+DEEP_TILES = {
+    (1, 5): (512, 32, 64), (1, 6): (256, 32, 48),
+    (2, 5): (512, 24, 32), (2, 6): (512, 16, 32),
+    (3, 3): (512, 32, 32), (3, 4): (512, 16, 32),
+}
+# csrc/stencil_sweep_deep.cuh: its threads a block, and the input planes in
+# flight
+DEEP_THREADS = 512
+DEEP_AHEAD = 2
 
 # launches per mode_key: counts["kernel"] of the CUDA kernel, counts["plain"]
 # of the plain version; frozen_counts the kernel's launches with a frozen
@@ -145,9 +165,31 @@ def smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
     return (2 * STAGES + radius) * py * sp * esz + w_ring + 2 * k * py * pz * 4
 
 
+def deep_smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
+                    medium: str = "m") -> int:
+    """Dynamic shared memory of one block of the deep form
+    (csrc/stencil_sweep_deep.cuh:smem, the bytes the launch requests):
+    staging rings of 2R+1+DEEP_AHEAD planes of u_n and DEEP_AHEAD+1 of
+    u_{n-1} over the whole (TY + 2KR) x (TZ + 2KR) region in the storage
+    dtype, rows padded as in smem_bytes; then a ring of 2R+1 f32 planes of
+    each level u_{n+j}, j = 1..K-1, over its region (TY + 2(K-j)R) x
+    (TZ + 2(K-j)R). The w stream is read from device memory, so `medium`
+    changes nothing."""
+    del medium
+    _xc, ty, tz = DEEP_TILES[radius, k] if tile is None else tile
+    esz = 2 if storage == "bfloat16" else 4
+    g2 = 2 * k * radius
+    py, pz, v = ty + g2, tz + g2, 16 // esz
+    sp = -(-pz // v) * v + v
+    levels = sum((ty + 2 * (k - j) * radius) * (tz + 2 * (k - j) * radius) for j in range(1, k))
+    return (2 * radius + 2 + 2 * DEEP_AHEAD) * py * sp * esz + (2 * radius + 1) * levels * 4
+
+
 def tile_fits(radius: int, k: int, tile, storage: str = "float32", medium: str = "m") -> bool:
-    """The block's region fits its threads' cells, and its planes shared
-    memory."""
+    """The block's planes fit shared memory, and on the register form its
+    region its threads' cells."""
+    if (radius, k) in DEEP_TILES:
+        return deep_smem_bytes(radius, k, tile, storage, medium) <= SMEM_LIMIT
     _xc, ty, tz = tile
     g2 = 2 * k * radius
     return ((ty + g2) * (tz + g2) <= cells_per_thread(radius, k) * THREADS
@@ -155,13 +197,17 @@ def tile_fits(radius: int, k: int, tile, storage: str = "float32", medium: str =
 
 
 def k_max(radius: int) -> int:
-    """Deepest fusion built at this radius: 4 at R <= 2, 2 at R = 3-4
-    (R * K <= 8, csrc/stencil_sweep.cuh:built)."""
-    return max(k for r, k in TILES if r == radius and tile_fits(r, k, TILES[r, k]))
+    """Deepest fusion built at this radius, the TPU sweep's (tpufdtd/ops/
+    stencil_sweep.py:max_k_fuse): 6 at R <= 2 and 4 at R = 3 (the deep
+    form), 2 at R = 4 (packed_fused2's)."""
+    return max(k for (r, k), t in {**TILES, **DEEP_TILES}.items()
+               if r == radius and tile_fits(r, k, t))
 
 
 def tile_for(radius: int, k: int, storage: str = "float32", medium: str = "m") -> tuple:
     """The block shape kernel B takes in a mode."""
+    if (radius, k) in DEEP_TILES:
+        return DEEP_TILES[radius, k]
     return MODE_TILES.get((storage, medium), {}).get((radius, k), TILES[radius, k])
 
 
@@ -329,8 +375,8 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
     the heterogeneous-medium mode, and m_val is then ignored. The frozen
     margins (module docstring) get u_n in both levels. CPU tensors take the
     plain version; CUDA tensors launch the kernel, and a failed launch
-    raises. `tile` = (XC, TY, TZ) overrides the block shape of TILES, for
-    tuning."""
+    raises. `tile` = (XC, TY, TZ) overrides the block shape of TILES (of
+    DEEP_TILES at their depths), for tuning."""
     frozen = (frozen_lo, frozen_hi, frozen_ylo, frozen_yhi)
     _check(U, out, grid, m_val, k_fuse, w, frozen)
     R = grid.radius
@@ -343,14 +389,16 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
         tile = (-(-nx // -(-nx // xc)) if nx > 0 else xc, ty, tz)
     else:
         tile = tuple(tile)
-    need = smem_bytes(R, k_fuse, tile, key[2], key[3])
+    deep = (R, k_fuse) in DEEP_TILES
+    need = (deep_smem_bytes if deep else smem_bytes)(R, k_fuse, tile, key[2], key[3])
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse} needs {need} B of shared memory")
     _xc, ty, tz = tile
-    cells = cells_per_thread(R, k_fuse)
-    if (ty + 2 * k_fuse * R) * (tz + 2 * k_fuse * R) > cells * THREADS:
-        raise ValueError(f"tile {tile} at R={R}, K={k_fuse}: the region exceeds {cells} cells"
-                         " per thread")
+    if not deep:
+        cells = cells_per_thread(R, k_fuse)
+        if (ty + 2 * k_fuse * R) * (tz + 2 * k_fuse * R) > cells * THREADS:
+            raise ValueError(f"tile {tile} at R={R}, K={k_fuse}: the region exceeds {cells}"
+                             " cells per thread")
     if U.device.type == "cpu":
         res = sweep_fused_ref(U, grid=grid, dt=dt, m_val=m_val, k_fuse=k_fuse, w=w,
                               frozen_lo=frozen_lo, frozen_hi=frozen_hi,

@@ -19,8 +19,9 @@ Routing of the "cuda" backend (the JAX package's "pallas" choices):
   * f32, uniform m, orders 2-8: the fast ring. K is K_AUTO[radius],
     degraded while the correction cubes do not fit the interior, down to
     K = 1, which needs no cube (the role of the JAX package's packed_step).
-    An explicit t_fuse up to 6 at orders 2-6 must fit its cubes at that
-    depth, as in the JAX package, and runs at min(t_fuse, k_max(radius)).
+    An explicit t_fuse up to k_max(radius), the JAX package's cap (6 at
+    orders 2-4, 4 at order 6, 2 at order 8), must fit its cubes at that
+    depth, as in the JAX package, and runs its blocks at that depth.
   * a heterogeneous m (w mode) or bf16 storage at orders 2-6, t_fuse 0 or
     >= 3: the fast ring on kernel B in that mode at K = MODE_K = 2, the
     cubes propagated through the local medium; the JAX package's sweep
@@ -65,9 +66,6 @@ from .sources import (
 # form of them).
 K_AUTO = {1: 3, 2: 2, 3: 1, 4: 1}
 MODE_K = 2
-# Deepest explicit t_fuse: the JAX package's sweep runs t_fuse up to 6 at
-# orders 2-6; deeper than kernel B's k_max the blocks run at k_max.
-T_FUSE_MAX = 6
 
 
 def resolve_device(device) -> torch.device:
@@ -197,17 +195,17 @@ class CudaEngine(_Engine):
             return
         kmax = stencil_sweep.k_max(R)
         explicit = cfg.t_fuse > 0
-        if explicit and (cfg.t_fuse > T_FUSE_MAX or (cfg.t_fuse > kmax and R > 3)):
+        if explicit and cfg.t_fuse > kmax:
+            # the JAX package's cap (tpufdtd/ops/stencil_sweep.py:max_k_fuse)
             raise ValueError(
                 f"t_fuse={cfg.t_fuse} is beyond the fused sweep at order {grid.order}: depths"
-                f" 1..{kmax if R > 3 else T_FUSE_MAX} (t_fuse >= 3 needs order <= 6)"
+                f" 1..{kmax} (t_fuse >= 3 needs order <= 6)"
             )
         # auto mode degrades K while the correction cubes do not fit the
         # interior (deeper K spreads each deposit R*(K-1)+1 cells), down to
         # K = 1, which has no cube; the w and bf16 modes stop at K = 2. An
         # explicit t_fuse must fit its cubes at the depth asked for, as in
-        # the JAX package, and runs at min(t_fuse, k_max): kernel B builds
-        # no deeper blocks (the depth cap, ROADMAP Queue 3)
+        # the JAX package, and runs at that depth
         k_auto = K_AUTO[R] if plain_mode else MODE_K
         ks = [cfg.t_fuse] if explicit else range(min(k_auto, kmax), 0 if plain_mode else 1, -1)
         h = grid.halo
@@ -217,9 +215,6 @@ class CudaEngine(_Engine):
                                          m_core=m_core)
             flat = [c for j in cubes for c in cubes[j]]
             if cubes_fit_core(flat, grid.padded_shape, h, h, grid.nz, z0=h):
-                if k > kmax:
-                    k = kmax
-                    cubes = {j: cubes[j] for j in range(2, k + 1)}
                 self.sweep_k = k
                 self.cubes = {
                     j: [(sl, torch.as_tensor(cb, device=self.device), p) for sl, cb, p in cubes[j]]
