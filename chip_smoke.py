@@ -15,7 +15,9 @@ exits non-zero without a result line:
   4. kernel B (K fused steps) at radius 2 against K plain steps, for
      K = 1..k_max (K = 5-6 on its deep form), at the main path's 512^3
      among other shapes, each K timed there, with its plain version at
-     K_AUTO and the deep form's K;
+     K_AUTO and the deep form's K; each deep K's ms a call and per step
+     beside its break-even, K steps of the register form's fastest depth
+     per step in the same run;
   4b. kernel B at radius 1, 3 and 4 (orders 2, 6, 8) the same way (the
      deep form at radius 1: K = 5-6, at radius 3: K = 3-4);
   5. correctness gate: simulate() at 128^3 x 50 through kernel A against
@@ -25,7 +27,8 @@ exits non-zero without a result line:
      ms/step, Gcell/s and % of HBM peak; the same run on the plain
      "torch" backend;
   7. high-order paths: the run of phase 6 at orders 6, 8 and 12 (kernel B
-     at radius 3 and 4 at K_AUTO = 1, kernel A at radius 6), and at order 8
+     at radius 3 at K_AUTO = 3, on its deep form, and at radius 4 at K_AUTO
+     = 1, kernel A at radius 6), and at order 8
      with t_fuse = 2 (kernel B at radius 4, K = 2: packed_fused2's role),
      each with its launches, levels, rel-L2 and times;
   8. kernel modes against their plain versions: kernel B with the w stream,
@@ -123,12 +126,14 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
-            b = re.search(r"kernelILi(\d)ELi(\d)ELb(\d)E(f|13__nv_bfloat16)Lb(\d)E", cur)
+            b = re.search(r"kernelILi(\d)ELi(\d)E(?:Li(\d+)ELi(\d+)E)?Lb(\d)E"
+                          r"(f|13__nv_bfloat16)Lb(\d)E", cur)
             a = re.search(r"leapfrog_xsweepILi(\d)E(f|13__nv_bfloat16)Li(\d)E", cur)
             if b:
-                cur = (f"B{' deep' if 'sweep_deep' in cur else ''} R={b[1]} K={b[2]}"
-                       f" {'iso' if b[3] == '1' else 'exact'}"
-                       f" {'f32' if b[4] == 'f' else 'bf16'} {'w' if b[5] == '1' else 'm'}")
+                tile = f" {b[3]}x{b[4]}" if b[3] else ""
+                cur = (f"B{' deep' if 'sweep_deep' in cur else ''} R={b[1]} K={b[2]}{tile}"
+                       f" {'iso' if b[5] == '1' else 'exact'}"
+                       f" {'f32' if b[6] == 'f' else 'bf16'} {'w' if b[7] == '1' else 'm'}")
             elif a:
                 cur = f"A R={a[1]} {'f32' if a[2] == 'f' else 'bf16'} {a[3]} blocks/SM"
             continue
@@ -438,6 +443,13 @@ def phase_kernel_b(tt, dev, radius, plain_ks, storage="float32", medium="m"):
         res[k] = {"ms": ms, "bound_ms": bms, "bound_by": by}
         print(f"  {tag} R={radius} at {MAIN_N}^3 K={k}: {ms:.4f} ms/call, {ms / k:.4f} ms/step,"
               f" bound {bms:.4f} ms/call ({by})")
+    # each deep depth beside its break-even: K steps of the register form's
+    # fastest depth per step, timed above
+    k_reg = min((k for k in res if (radius, k) in B.TILES), key=lambda k: res[k]["ms"] / k)
+    for k in sorted(k for k in res if (radius, k) in B.DEEP_TILES):
+        ms, even = res[k]["ms"], k * res[k_reg]["ms"] / k_reg
+        print(f"  {tag} R={radius} deep K={k} at {MAIN_N}^3: {ms:.4f} ms/call, {ms / k:.4f}"
+              f" ms/step, break-even with K={k_reg} {even:.4f} ms/call ({ms / even:.3f} of it)")
     for k in plain_ks:
         plain = cuda_ms(lambda: B.sweep_fused_ref(U, grid=grid, dt=1e-3, m_val=1.5,
                                                   k_fuse=k, w=w), 3)
@@ -671,8 +683,8 @@ def report_times(tt, dev, smi, sim, secs, src, plain=True, label="", spans=4):
 
 
 # per order of phase 7: the only launches allowed, and those that must occur
-# (orders 6 and 8 at K_AUTO = 1, the fastest per step)
-HIGH_ORDER_LAUNCHES = {6: ([r"B R=3 K=\d float32 m"], [r"B R=3 K=\d float32 m"]),
+# (order 6 at K_AUTO = 3 and order 8 at K_AUTO = 1, the fastest per step)
+HIGH_ORDER_LAUNCHES = {6: ([r"B R=3 K=\d float32 m"], [r"B R=3 K=3 float32 m"]),
                        8: ([r"B R=4 K=[12] float32 m"], [r"B R=4 K=\d float32 m"]),
                        12: ([r"A R=6 float32 scalar"], [r"A R=6 float32 scalar"])}
 # phase 7's order-8 run at t_fuse = 2, packed_fused2's role: K = 2 blocks
@@ -1455,10 +1467,10 @@ def run_phases(tt, dev, smi):
     print("[3b kernel A at order 12 vs plain]")
     a12 = phase_kernel_a_order12(tt, dev)
     print("[4 kernel B vs plain]")
-    b = {2: phase_kernel_b(tt, dev, 2, [K_AUTO[2]] + deep_ks(2))}
+    b = {2: phase_kernel_b(tt, dev, 2, sorted({K_AUTO[2], *deep_ks(2)}))}
     print("[4b kernel B at radius 1, 3 and 4 vs plain]")
-    for radius, plain_ks in ((1, [K_AUTO[1]]), (3, [K_AUTO[3]]), (4, sorted({1, 2, K_AUTO[4]}))):
-        b[radius] = phase_kernel_b(tt, dev, radius, plain_ks + deep_ks(radius))
+    for radius, plain_ks in ((1, [K_AUTO[1]]), (3, [K_AUTO[3]]), (4, [1, 2, K_AUTO[4]])):
+        b[radius] = phase_kernel_b(tt, dev, radius, sorted({*plain_ks, *deep_ks(radius)}))
 
     print("[5 correctness gate]")
     launches_a = phase_gate(tt, dev)
@@ -1474,8 +1486,8 @@ def run_phases(tt, dev, smi):
     for storage, medium in NEW_MODES:
         for radius in MODE_RADII:
             bm[storage, medium, radius] = phase_kernel_b(tt, dev, radius,
-                                                         [MODE_K] + deep_ks(radius), storage,
-                                                         medium)
+                                                         sorted({MODE_K, *deep_ks(radius)}),
+                                                         storage, medium)
     a_bf16 = phase_kernel_a_bf16(tt, dev)
     print("[9 heterogeneous paths: the layered medium]")
     for order in (4, 6):
@@ -1547,6 +1559,7 @@ def run_phases(tt, dev, smi):
     mode_names = {("float32", "w"): "w", ("bfloat16", "m"): "bf16", ("bfloat16", "w"): "bf16+w"}
     sweep_modes = {f"R={r},K={K_AUTO[r]}": {
         **b_mode(r, K_AUTO[r]), "library_ms": None,
+        "source": deep if (r, K_AUTO[r]) in DEEP_TILES else sweep,
         "launches": total(rf"B R={r} K=\d float32 m")} for r in (1, 3)}
     for (storage, medium), tag in mode_names.items():
         for r in MODE_RADII:

@@ -414,7 +414,9 @@ def test_smem_bytes_is_what_the_launch_requests(dev):
     from tpufdtd_torch.ops import _build
 
     lib = _build.library()
-    for (r, k), tile in {**B.TILES, **B.DEEP_TILES}.items():
+    deep = [((r, k), (64, ty, tz)) for (r, k), shapes in B.DEEP_SHAPES.items()
+            for ty, tz in shapes]
+    for (r, k), tile in list(B.TILES.items()) + deep:
         smem = B.deep_smem_bytes if (r, k) in B.DEEP_TILES else B.smem_bytes
         for storage in ("float32", "bfloat16"):
             for medium in ("m", "w"):
@@ -443,6 +445,17 @@ def test_kernel_b_deep_matches_plain(dev, dtype, with_w, radius, k, shape, h):
              with_w)
 
 
+@pytest.mark.parametrize("radius,k,ty,tz", [(r, k, ty, tz) for (r, k), shapes in
+                                             sorted(B.DEEP_SHAPES.items()) for ty, tz in shapes])
+@pytest.mark.parametrize("dtype,with_w", [(torch.float32, False), (torch.bfloat16, True)])
+def test_kernel_b_deep_every_built_tile_matches_plain(dev, radius, k, ty, tz, dtype, with_w):
+    """Every tile the deep form is built for (the template's instantiations,
+    which tile_probe times), over two block columns a side and three
+    x-chunks, anisotropic h."""
+    g = tt.Grid3D(70, ty + 9, tz + 5, hx=0.1, hy=0.05, hz=0.2, order=2 * radius)
+    _check_b(dev, g, k, dtype, with_w, tile=(32, ty, tz))
+
+
 @pytest.mark.parametrize("radius,k", sorted(B.DEEP_TILES))
 @pytest.mark.parametrize("dtype,with_w", [(torch.float32, False), (torch.bfloat16, True)])
 def test_kernel_b_deep_frozen_margins_match_plain(dev, radius, k, dtype, with_w):
@@ -468,18 +481,25 @@ def test_kernel_b_deep_frozen_margins_match_plain(dev, radius, k, dtype, with_w)
 
 
 def test_kernel_b_deep_launch_refusals(dev):
-    """The deep form refuses what it cannot run: a block whose rings need
-    more than 227 KB (before the launch), a depth built in neither form (the
-    C entry's code), and a grid with more x-chunks than a grid may have
-    blocks along z (the launch fails)."""
+    """The deep form refuses what it cannot run: a tile it is not built for
+    (before the launch, and in the C entry's code) and a depth built in
+    neither form (the C entry's code). More x-chunks than a grid may have
+    blocks along z are no refusal: its grid is one block an SM, each walking
+    its share of the segments."""
     from tpufdtd_torch.ops import _build
 
     g = tt.Grid3D(16, 16, 16)
     U = torch.zeros((2,) + g.padded_shape, device=dev)
     out = U.clone()
-    assert B.deep_smem_bytes(2, 6, (64, 32, 32)) > B.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
+    assert (32, 32) not in B.DEEP_SHAPES[2, 6]
+    with pytest.raises(ValueError, match="deep form is built for"):
         B.sweep_fused(U, out, grid=g, dt=1e-3, m_val=1.5, k_fuse=6, tile=(64, 32, 32))
+    code = _build.library().tpufdtd_sweep(
+        U.data_ptr(), out.data_ptr(), None, 16, 16, 16, g.halo, 2, 6, 1, 0, 64, 32, 32,
+        0, 0, 0, 0, g.padded_shape[0], _build.coeff_array([0.0] * 16),
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(ValueError, match="not built for this block shape"):
+        _build.check(code, "sweep_fused")
     g6 = tt.Grid3D(16, 16, 16, order=6)
     U6 = torch.zeros((2,) + g6.padded_shape, device=dev)
     out6 = U6.clone()
@@ -489,10 +509,7 @@ def test_kernel_b_deep_launch_refusals(dev):
         torch.cuda.current_stream().cuda_stream)
     with pytest.raises(ValueError, match="depth K = 5"):
         _build.check(code, "sweep_fused")
-    gx = tt.Grid3D(65600, 8, 8)
-    Ux = torch.zeros((2,) + gx.padded_shape, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        B.sweep_fused(Ux, Ux.clone(), grid=gx, dt=1e-3, m_val=1.5, k_fuse=6, tile=(1, 8, 8))
+    _check_b(dev, tt.Grid3D(65600, 8, 8), 6, tile=(1,) + B.DEEP_SHAPES[2, 6][0])
 
 
 @pytest.mark.parametrize("storage,with_w", [("float32", False), ("bfloat16", True)])

@@ -343,6 +343,24 @@ def test_sharded_depth_follows_the_mode():
     assert sharded_sweep.K_SHARDED_MAX == 3 <= stencil_sweep.k_max(2)
 
 
+@pytest.mark.parametrize("order,storage,layered,k", [
+    (2, "float32", False, 3), (4, "float32", False, 2), (2, "bfloat16", False, 2),
+    (4, "bfloat16", False, 2), (2, "float32", True, 2), (4, "float32", True, 2)])
+def test_sharded_auto_depth_is_pinned(order, storage, layered, k):
+    """The sharded sweep's auto depth per (radius, mode) stays the register
+    form's (K_AUTO_SHARDED, MODE_K) whatever stepper.K_AUTO takes: the
+    single-device auto depth at order 2 is the deep form's K = 6."""
+    from tpufdtd_torch import stepper
+
+    g = tt.Grid3D(32, 16, 16, hx=1.0, hy=1.0, hz=1.0, order=order)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    if layered:
+        m[g.padded_shape[0] // 2:] = 2.0
+    cfg = tt.SimConfig(storage_dtype=storage)
+    assert ShardedSimulator(g, cfg, m, _mesh(4)).sweep.K == k
+    assert sharded_sweep.K_AUTO_SHARDED == {1: 3, 2: 2} and stepper.K_AUTO[1] == 6
+
+
 # ---- the benchmark rows ---------------------------------------------------------
 
 

@@ -2,7 +2,7 @@
 // stencil_sweep_<storage>_<medium>_r<radii>.cu: f32 with a scalar m at
 // radius 1-4, f32 with the w stream and bf16 with either at radius 1-3.
 // The deep form (stencil_sweep_deep.cuh, stencil_sweep_deep_<storage>_
-// <medium>.cu) takes the depths the register form does not build.
+// <medium>_r<radius>.cu) takes the depths the register form does not build.
 
 #include <algorithm>
 
@@ -61,7 +61,8 @@ int copy_margins(const T* uin, T* uout, int nx, int ny, int nz, int h, int flo, 
 // sharded sweep's overlap). (radius, k) runs on the register form where
 // it builds them (sweep::built), else on the deep form (sweep_deep::built).
 // Returns cudaGetLastError() after the launches; 1000 + radius for a radius
-// this mode is not built for, 2000 + k for a depth.
+// this mode is not built for, 2000 + k for a depth, 3000 for a deep form's
+// tile (ty, tz) not built (sweep_deep::TPUFDTD_DEEP_SHAPES).
 extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx,
                              int ny, int nz, int halo, int radius, int k,
                              int isotropic, int bf16_storage, int xc, int ty,
@@ -88,11 +89,19 @@ extern "C" int tpufdtd_sweep(const void* uin, void* uout, const float* w, int nx
     if (bf16_storage) {
       const bf16* bin = static_cast<const bf16*>(uin) + off;
       bf16* bout = static_cast<bf16*>(uout) + off;
-      return (w ? sweep_deep_bf16_w : sweep_deep_bf16_m)(bin, bout, wv, g, radius, k, iso, c, s);
+      using F = int (*)(const bf16*, bf16*, const float*, sweep::Geom, int, int, bool,
+                        const Coeffs&, cudaStream_t);
+      const F m[3] = {sweep_deep_bf16_m_r1, sweep_deep_bf16_m_r2, sweep_deep_bf16_m_r3};
+      const F wm[3] = {sweep_deep_bf16_w_r1, sweep_deep_bf16_w_r2, sweep_deep_bf16_w_r3};
+      return (w ? wm : m)[radius - 1](bin, bout, wv, g, radius, k, iso, c, s);
     }
     const float* fin = static_cast<const float*>(uin) + off;
     float* fout = static_cast<float*>(uout) + off;
-    return (w ? sweep_deep_f32_w : sweep_deep_f32_m)(fin, fout, wv, g, radius, k, iso, c, s);
+    using F = int (*)(const float*, float*, const float*, sweep::Geom, int, int, bool,
+                      const Coeffs&, cudaStream_t);
+    const F m[3] = {sweep_deep_f32_m_r1, sweep_deep_f32_m_r2, sweep_deep_f32_m_r3};
+    const F wm[3] = {sweep_deep_f32_w_r1, sweep_deep_f32_w_r2, sweep_deep_f32_w_r3};
+    return (w ? wm : m)[radius - 1](fin, fout, wv, g, radius, k, iso, c, s);
   }
   if (bf16_storage) {
     const bf16* bin = static_cast<const bf16*>(uin) + off;

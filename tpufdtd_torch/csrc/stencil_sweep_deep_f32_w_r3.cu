@@ -1,0 +1,8 @@
+// Kernel B's deep form (stencil_sweep_deep.cuh): f32 storage with the w stream, radius 3.
+// One translation unit per mode and radius, so that nvcc builds them in parallel.
+
+#include "stencil_sweep_deep.cuh"
+
+TPUFDTD_SWEEP_MODE(sweep_deep_f32_w_r3, float) {
+  return sweep_deep::launch_mode<float, true, 3>(uin, uout, w, g, radius, k, iso, c, s);
+}

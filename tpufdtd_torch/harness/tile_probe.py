@@ -10,7 +10,12 @@ block shapes (XC, TY, TZ) that fit (stencil_sweep.tile_fits), with
 CUDA events, and prints each shape's ms per call and ms per step, the fastest shape per
 (R, K) and the one the kernel takes (stencil_sweep.tile_for), then the
 fastest K per step of each radius (stepper.K_AUTO, from the f32 scalar-m
-mode) and the fastest K >= 2 (stepper.MODE_K, the w and bf16 modes').
+mode) and the fastest K >= 2 (stepper.MODE_K, the w and bf16 modes'); for
+the deep form, which takes only the tiles it is built for
+(stencil_sweep.DEEP_SHAPES), the fastest tile per (R, K) as a DEEP_TILES
+entry and each depth's ms per call beside its break-even, K times the held
+auto depth's ms per step (K_AUTO, or MODE_K in the other modes) measured in
+the same run (pass that depth in --k too).
 Every shape is first checked bitwise against the kernel's own shape on one
 small grid, so a shape that computes something else fails the probe
 instead of winning it.
@@ -25,7 +30,7 @@ shape's ms per step, and the fastest and the held shape per place.
 Usage (on a CUDA card):
   python -m tpufdtd_torch.harness.tile_probe               # 512^3, f32, scalar m
   python -m tpufdtd_torch.harness.tile_probe --n 256 --radius 3 --k 2
-  python -m tpufdtd_torch.harness.tile_probe --radius 1 2 --k 5 6   # the deep form
+  python -m tpufdtd_torch.harness.tile_probe --radius 1 2 3 --k 3 4 5 6   # the deep form
   python -m tpufdtd_torch.harness.tile_probe --storage bfloat16 --medium w
   python -m tpufdtd_torch.harness.tile_probe --kernel A    # every place
   python -m tpufdtd_torch.harness.tile_probe --kernel A --place gate shard
@@ -40,7 +45,7 @@ import torch
 
 from ..config import Grid3D
 from ..ops import stencil_step, stencil_sweep
-from ..stepper import resolve_device
+from ..stepper import K_AUTO, MODE_K, resolve_device
 
 XCS = (256, 512)
 TYS = (8, 16, 24, 32, 40, 48)
@@ -62,25 +67,42 @@ A_TZS = (32, 64, 96, 128)
 def candidates(radius: int, k: int, first=None, storage: str = "float32",
                medium: str = "m") -> list:
     """Block shapes for (radius, k) that fit (stencil_sweep.tile_fits) and
-    give at least half of their threads' cells work (on the deep form: an
-    output column of at least half its threads); `first` (default the
-    kernel's own, tile_for) comes first."""
+    give at least half of their threads' cells work; on the deep form, each
+    tile it is built for (stencil_sweep.DEEP_SHAPES) at each XC. `first`
+    (default the kernel's own, tile_for) comes first."""
     out = [stencil_sweep.tile_for(radius, k) if first is None else first]
-    g2 = 2 * k * radius
     if (radius, k) in stencil_sweep.DEEP_TILES:
-        def busy(ty, tz):
-            return 2 * ty * tz >= stencil_sweep.DEEP_THREADS
-    else:
-        cells = stencil_sweep.cells_per_thread(radius, k) * stencil_sweep.THREADS
-
-        def busy(ty, tz):
-            return 2 * (ty + g2) * (tz + g2) > cells
+        for xc, (ty, tz) in itertools.product(XCS, stencil_sweep.DEEP_SHAPES[radius, k]):
+            if (xc, ty, tz) not in out and stencil_sweep.tile_fits(radius, k, (xc, ty, tz),
+                                                                    storage, medium):
+                out.append((xc, ty, tz))
+        return out
+    g2 = 2 * k * radius
+    cells = stencil_sweep.cells_per_thread(radius, k) * stencil_sweep.THREADS
     for tile in itertools.product(XCS, TYS, TZS):
         _xc, ty, tz = tile
-        if (busy(ty, tz) and tile not in out
+        if (2 * (ty + g2) * (tz + g2) > cells and tile not in out
                 and stencil_sweep.tile_fits(radius, k, tile, storage, medium)):
             out.append(tile)
     return out
+
+
+# Shared memory's rate on an H100 SXM: 132 SMs x 128 B a clock x ~1.75 GHz
+SMEM_BYTES_PER_S = 132 * 128 * 1.75e9
+
+
+def deep_floor_ms(radius: int, k: int, tile, n: int = 512) -> float:
+    """The least time the deep form's data flow needs at n^3 from shared
+    memory alone (csrc/stencil_sweep_deep.cuh): each cell-stage of stages
+    1..K over its region (TY + 2(K-j)R) x (TZ + 2(K-j)R) moves half of its
+    pair's 8-byte words, R + 1 + (R & 1) for the z window, 2R x- and 2R
+    y-neighbours, the level two steps back and its store, over
+    SMEM_BYTES_PER_S."""
+    _xc, ty, tz = tile
+    words = radius + 1 + (radius & 1) + 4 * radius + 2
+    stages = sum((ty + 2 * (k - j) * radius) * (tz + 2 * (k - j) * radius)
+                 for j in range(1, k + 1)) / (ty * tz)
+    return n ** 3 * stages * 4 * words / SMEM_BYTES_PER_S * 1e3
 
 
 def candidates_a(grid: Grid3D, storage: str, mkind: str, sms: int) -> list:
@@ -218,12 +240,32 @@ def probe(n: int, radii, ks, iters: int, device="cuda", storage="float32",
             results[R, k] = rows
             del U, out, w
         per_step = {k: rows[0][1] / k for (r, k), rows in results.items() if r == R}
+        deep = [k for k in sorted(per_step) if (R, k) in stencil_sweep.DEEP_TILES]
+        # the held auto depth (K_AUTO; MODE_K in the other modes), timed at
+        # its own tile where it was not probed: each deep depth's break-even
+        k_held = K_AUTO[R] if (storage, medium) == ("float32", "m") else MODE_K
+        if deep and k_held not in per_step:
+            U, out, w = _pair(grid, dev, 100 + k_held, dtype, medium)
+            ms = _ms(lambda: stencil_sweep.sweep_fused(U, out, grid=grid, w=w, dt=0.03,
+                                                       m_val=1.5, k_fuse=k_held), iters)
+            per_step[k_held] = ms / k_held
+            print(f"{storage} {medium} R={R} K={k_held} at"
+                  f" {stencil_sweep.tile_for(R, k_held, storage, medium)}: {ms:.4f} ms/call,"
+                  f" {ms / k_held:.4f} ms/step")
+            del U, out, w
         for k_min in (1, 2):
             ks_ = {k: t for k, t in per_step.items() if k >= k_min}
             if ks_:
                 k_auto = min(ks_, key=ks_.get)
                 print(f"{storage} {medium} R={R} fastest K >= {k_min} per step: K={k_auto}"
                       f" ({ks_[k_auto]:.4f} ms/step)")
+        for k in deep:
+            even = k * per_step[k_held]
+            floor = deep_floor_ms(R, k, results[R, k][0][0], n)
+            print(f"{storage} {medium} DEEP_TILES[{R}, {k}] = {results[R, k][0][0]}:"
+                  f" {per_step[k] * k:.4f} ms/call, break-even with K={k_held}"
+                  f" {even:.4f} ms/call ({per_step[k] * k / even:.3f} of it), shared-memory"
+                  f" floor {floor:.4f} ms/call ({per_step[k] * k / floor:.2f} times it)")
     return results
 
 

@@ -156,6 +156,8 @@ def build_log() -> str:
 
 
 def check(code: int, what: str) -> None:
+    if code == 3000:
+        raise ValueError(f"{what}: the deep form is not built for this block shape")
     if code >= 2000:
         raise ValueError(f"{what}: depth K = {code - 2000} is not built into this radius")
     if code >= 1000:

@@ -98,20 +98,26 @@ MODE_TILES = {
 STAGES = 4
 THREADS = 256
 REG_OVERHEAD = 64
-# The deep form's block shape per (R, K), the depths of the TPU sweep
-# (K <= 6 at R <= 2, K <= 4 at R = 3) beyond TILES: (XC, TY, TZ) as above,
-# DEEP_THREADS threads a block, one block an SM (csrc/stencil_sweep_deep.cuh
-# :built); every mode takes the same shape, the fastest in the f32
-# scalar-m mode at 512^3 on an H100 (harness/tile_probe.py; PERF.md).
-DEEP_TILES = {
-    (1, 5): (512, 32, 64), (1, 6): (256, 32, 48),
-    (2, 5): (512, 24, 32), (2, 6): (512, 16, 32),
-    (3, 3): (512, 32, 32), (3, 4): (512, 16, 32),
+# The deep form's tiles: every (TY, TZ) built per (R, K), the depths of the
+# TPU sweep (K <= 6 at R <= 2, K <= 4 at R = 3) beyond TILES
+# (csrc/stencil_sweep_deep.cuh:TPUFDTD_DEEP_SHAPES lists the same; the tile
+# is a template parameter there, and the kernel refuses any other), and the
+# block shape (XC, TY, TZ) each (R, K) takes in every mode, the fastest
+# built one in the f32 scalar-m mode at 512^3 on an H100 (harness/
+# tile_probe.py; PERF.md), one block an SM.
+DEEP_SHAPES = {
+    (1, 5): ((40, 64), (48, 48)), (1, 6): ((32, 64), (40, 48)),
+    (2, 5): ((32, 32), (24, 40)), (2, 6): ((16, 40), (16, 32)),
+    (3, 3): ((16, 64), (32, 40)), (3, 4): ((16, 40), (16, 32)),
 }
-# csrc/stencil_sweep_deep.cuh: its threads a block, and the input planes in
-# flight
+DEEP_TILES = {
+    (1, 5): (512, 40, 64), (1, 6): (512, 32, 64),
+    (2, 5): (512, 32, 32), (2, 6): (512, 16, 40),
+    (3, 3): (512, 16, 64), (3, 4): (512, 16, 40),
+}
+# threads of a deep block (csrc/stencil_sweep_deep.cuh:threads; 384 at R = 1
+# and for the exact form with a scalar m at R = 2)
 DEEP_THREADS = 512
-DEEP_AHEAD = 2
 
 # launches per mode_key: counts["kernel"] of the CUDA kernel, counts["plain"]
 # of the plain version; frozen_counts the kernel's launches with a frozen
@@ -168,28 +174,35 @@ def smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
 def deep_smem_bytes(radius: int, k: int, tile=None, storage: str = "float32",
                     medium: str = "m") -> int:
     """Dynamic shared memory of one block of the deep form
-    (csrc/stencil_sweep_deep.cuh:smem, the bytes the launch requests):
-    staging rings of 2R+1+DEEP_AHEAD planes of u_n and DEEP_AHEAD+1 of
-    u_{n-1} over the whole (TY + 2KR) x (TZ + 2KR) region in the storage
-    dtype, rows padded as in smem_bytes; then a ring of 2R+1 f32 planes of
-    each level u_{n+j}, j = 1..K-1, over its region (TY + 2(K-j)R) x
-    (TZ + 2(K-j)R). The w stream is read from device memory, so `medium`
-    changes nothing."""
+    (csrc/stencil_sweep_deep.cuh:Shape::smem, the bytes the launch
+    requests): one staged plane of u_n over level 0's region (TY + 2KR) x
+    (TZ + 2KR) and one of u_{n-1} over the same rows, in the storage dtype,
+    rows padded as in smem_bytes, each after 32 bytes of guard; then a ring
+    of 2R+1 f32 planes of each level u_{n+j}, j = 0..K-1, over its region
+    (TY + 2(K-j)R) x (TZ + 2(K-j)R), its rows two cells wider where jR is
+    odd. The w stream is read from device memory, so `medium` changes
+    nothing."""
     del medium
     _xc, ty, tz = DEEP_TILES[radius, k] if tile is None else tile
     esz = 2 if storage == "bfloat16" else 4
-    g2 = 2 * k * radius
-    py, pz, v = ty + g2, tz + g2, 16 // esz
-    sp = -(-pz // v) * v + v
-    levels = sum((ty + 2 * (k - j) * radius) * (tz + 2 * (k - j) * radius) for j in range(1, k))
-    return (2 * radius + 2 + 2 * DEEP_AHEAD) * py * sp * esz + (2 * radius + 1) * levels * 4
+    v = 16 // esz
+    sp = -(-(tz + 2 * k * radius) // v) * v + v
+    levels = sum((ty + 2 * (k - j) * radius) * (tz + 2 * (k - j) * radius + 2 * (j * radius % 2))
+                 for j in range(k))
+    return 2 * (32 + (ty + 2 * k * radius) * sp * esz) + (2 * radius + 1) * levels * 4
+
+
+def deep_built(radius: int, k: int, tile) -> bool:
+    """The deep form is instantiated at this tile's (TY, TZ) (DEEP_SHAPES)."""
+    return tuple(tile[1:]) in DEEP_SHAPES.get((radius, k), ())
 
 
 def tile_fits(radius: int, k: int, tile, storage: str = "float32", medium: str = "m") -> bool:
     """The block's planes fit shared memory, and on the register form its
     region its threads' cells."""
     if (radius, k) in DEEP_TILES:
-        return deep_smem_bytes(radius, k, tile, storage, medium) <= SMEM_LIMIT
+        return (deep_built(radius, k, tile)
+                and deep_smem_bytes(radius, k, tile, storage, medium) <= SMEM_LIMIT)
     _xc, ty, tz = tile
     g2 = 2 * k * radius
     return ((ty + g2) * (tz + g2) <= cells_per_thread(radius, k) * THREADS
@@ -376,7 +389,8 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
     margins (module docstring) get u_n in both levels. CPU tensors take the
     plain version; CUDA tensors launch the kernel, and a failed launch
     raises. `tile` = (XC, TY, TZ) overrides the block shape of TILES (of
-    DEEP_TILES at their depths), for tuning."""
+    DEEP_TILES at their depths, where (TY, TZ) must be one of DEEP_SHAPES
+    on every device), for tuning."""
     frozen = (frozen_lo, frozen_hi, frozen_ylo, frozen_yhi)
     _check(U, out, grid, m_val, k_fuse, w, frozen)
     R = grid.radius
@@ -390,6 +404,9 @@ def sweep_fused(U, out, *, grid: Grid3D, dt: float, m_val, k_fuse: int, w=None, 
     else:
         tile = tuple(tile)
     deep = (R, k_fuse) in DEEP_TILES
+    if deep and not deep_built(R, k_fuse, tile):
+        raise ValueError(f"tile {tile} at R={R}, K={k_fuse}: the deep form is built for (TY, TZ)"
+                         f" in {DEEP_SHAPES[R, k_fuse]} only")
     need = (deep_smem_bytes if deep else smem_bytes)(R, k_fuse, tile, key[2], key[3])
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} at R={R}, K={k_fuse} needs {need} B of shared memory")

@@ -78,10 +78,14 @@ import torch
 from ..config import Grid3D, SimConfig
 from ..ops import stencil_sweep
 from ..sources import build_source_term, injection_cubes_upto
-from ..stepper import K_AUTO, MODE_K
+from ..stepper import MODE_K
 
 # Deepest block of the sharded sweep: M = (K-1) R <= H at radius 1-2.
 K_SHARDED_MAX = 3
+# The sharded sweep's auto depth with f32 and a scalar m, per radius: the
+# register form's fastest K per step (stepper.K_AUTO takes the deep form's
+# K = 6 at radius 1, beyond K_SHARDED_MAX).
+K_AUTO_SHARDED = {1: 3, 2: 2}
 
 
 def _cubes_fit_global(cubes_by_j, grid: Grid3D) -> bool:
@@ -113,11 +117,11 @@ class SweepShard:
         R, h = grid.radius, grid.halo
         if R > 2:
             return None
-        # auto: the single-device depth of the mode (stepper.K_AUTO for f32
-        # with a scalar m, MODE_K for the w and bf16 modes); explicit
-        # t_fuse >= 3 asks for min(t_fuse, 3); both capped at M <= H
+        # auto: K_AUTO_SHARDED for f32 with a scalar m, MODE_K (the
+        # single-device depth) for the w and bf16 modes; explicit t_fuse >= 3
+        # asks for min(t_fuse, 3); both capped at M <= H
         plain = uniform and cfg.storage_dtype == "float32"
-        want = (K_AUTO[R] if plain else MODE_K) if cfg.t_fuse == 0 else cfg.t_fuse
+        want = (K_AUTO_SHARDED[R] if plain else MODE_K) if cfg.t_fuse == 0 else cfg.t_fuse
         k_sel = 0
         for k in range(min(want, K_SHARDED_MAX, stencil_sweep.k_max(R)), 1, -1):
             if (k - 1) * R > h or nxl < k * R or (ndy > 1 and nyl < k * R):

@@ -61,10 +61,11 @@ from .sources import (
 
 # Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0: the
 # fastest K per step of kernel B's f32 scalar-m mode at 512^3 on an H100
-# (harness/tile_probe.py; PERF.md). The w and bf16 modes take MODE_K, their
-# fastest K >= 2 at every radius (the JAX package's sweep has no K = 1
-# form of them).
-K_AUTO = {1: 3, 2: 2, 3: 1, 4: 1}
+# (harness/tile_probe.py; PERF.md): its deep form at radius 1 and 3, the
+# register form at radius 2 (K = 5 about level with K = 2) and 4. The w and
+# bf16 modes take MODE_K, their fastest K >= 2 at every radius (the JAX
+# package's sweep has no K = 1 form of them).
+K_AUTO = {1: 6, 2: 2, 3: 3, 4: 1}
 MODE_K = 2
 
 
