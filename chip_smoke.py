@@ -73,8 +73,23 @@ exits non-zero without a result line:
   16. the sharded sweep's exchange/compute overlap: x4 order 4 at 512^3 x 50
      with overlap "on" bitwise "off" in f32 with the source, in the w mode
      and in bf16, both timed;
-  17. tracing.trace of 10 main-path steps: the device's busy share;
-  18. the bench line of tpufdtd_torch/harness/bench.py.
+  17. tracing.trace of 10 main-path steps, one replay of a captured graph:
+     the device's busy share, and the profiler's kernel-B intervals, which
+     must equal the launches counted;
+  18. the bench line of tpufdtd_torch/harness/bench.py;
+  19. the Simulator's captured graphs against the engine's eager loop
+     (engine.run_scan) on copies of one state, bitwise, at 512^3 x 50: order
+     4, order 6 (the deep form), order 12 (the exact ring on kernel A), order
+     4 layered in bf16 (bf16 + w), order 4 at t_fuse 5; and two replays with
+     two source tables on the same buffers; each graph's capture seconds,
+     node and kernel-node counts and launches a replay; a failed capture
+     raises and runs nothing;
+  20. the ladder 128^3-1024^3 at order 4: ms/step through the graphs and
+     through the eager loop.
+On the card the Simulator runs each span as a captured CUDA graph: every
+single-device run of phases 5-10b, 13 and 14 is also held bitwise to the
+engine's eager loop over the same spans on a copy of its state (launches
+of these eager runs are not counted).
 Then the JSON line of the kernels (one entry per TPU kernel replaced), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Exits 1
 without a CUDA device.
@@ -552,6 +567,40 @@ def reset_counts():
     B.reset_counts()
 
 
+def eager_run(sim, state, src, spans):
+    """`state` advanced through the engine's eager loop (the loop the
+    Simulator captures) in spans of the given step counts, source row t
+    feeding step t; its launches are not counted."""
+    from tpufdtd_torch.harness import span_times
+    from tpufdtd_torch.stepper import _counts_kept
+
+    with _counts_kept():
+        return span_times.eager_run(sim, state, src, spans)
+
+
+def same_state(a, b) -> bool:
+    """Bitwise equality of two states, level by level."""
+    import torch
+
+    from tpufdtd_torch.stepper import _buffers as buffers
+
+    torch.cuda.synchronize()
+    return isinstance(a, dict) == isinstance(b, dict) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(buffers(a), buffers(b)))
+
+
+def check_graphed(label, sim, state, twin):
+    """A run of the Simulator went through its captured graphs and is bitwise
+    `twin`, the eager loop over the same spans on a copy of its state."""
+    if not sim.graphs:
+        raise AssertionError(f"{label}: the Simulator captured no graph on the card")
+    same = same_state(state, twin)
+    print(f"  {label}: graph spans bitwise the eager engine.run_scan: {same}"
+          f" ({len(sim.graphs)} graphs)")
+    if not same:
+        raise AssertionError(f"{label}: the graph's state differs from the eager loop's")
+
+
 def phase_gate(tt, dev):
     """The main path's correctness half; returns kernel A's launches in it."""
     from tpufdtd_torch.harness.correctness import make_ic
@@ -559,14 +608,21 @@ def phase_gate(tt, dev):
     grid = tt.Grid3D(GATE_N, GATE_N, GATE_N, hx=1.0, hy=1.0, hz=1.0)
     up, uc, m = make_ic(grid)
     _, c_true, _ = tt.truth_run_ring(up, uc, m, grid, 0.001, 50, device=dev)
+    cfg = tt.SimConfig(dt=0.001, nsteps=50, backend="cuda")
     reset_counts()
-    _, c = tt.simulate(up, uc, m, grid, tt.SimConfig(dt=0.001, nsteps=50, backend="cuda"),
-                       device=dev)
+    p, c = tt.simulate(up, uc, m, grid, cfg, device=dev)
     a, b, plain = launch_counts()
     print(f"  gate launches: A {a}, B {b}, plain {plain}")
     if a == 0 or b != 0 or plain != 0:
         raise AssertionError(f"the gate's exact ring must run on kernel A alone; got A {a},"
                              f" B {b}, plain {plain}")
+    # simulate's Simulator replays a graph: hold it to the eager loop's run
+    eager = tt.Simulator(grid, dataclasses.replace(cfg, ring="exact"), m, device=dev)
+    want = eager.extract_state(eager_run(eager, eager.prepare_state(up, uc), None, [50]))
+    same = np.array_equal(p, want[0]) and np.array_equal(c, want[1])
+    print(f"  gate: simulate() bitwise the eager engine.run_scan: {same}")
+    if not same:
+        raise AssertionError("gate: simulate() differs from the eager loop")
     l2 = rel_l2(c, c_true)
     print(f"  gate {GATE_N}^3 x 50 (exact ring, kernel A): rel-L2 {l2:.3e} vs f64 truth")
     if not l2 < GATE_TOL:
@@ -588,9 +644,15 @@ def run_main(tt, dev, backend, order=4, medium=None, storage="float32", t_fuse=0
     u0 = np.zeros(grid.padded_shape, np.float32)
     sim = tt.Simulator(grid, cfg, m, coords, device=dev)
     state = sim.prepare_state(u0, u0)
+    twin = tt.Simulator._copy(state) if backend == "cuda" else None
     state, secs = sim.run_timed(state, src)
     if sim.last_clock != "cuda_event":
         raise AssertionError(f"run_timed's clock is {sim.last_clock!r}, not CUDA events")
+    if twin is not None:  # "torch" stays eager: no graph to hold
+        twin = eager_run(sim, twin, src, (cfg.warmup_steps, nsteps - cfg.warmup_steps))
+        check_graphed(f"order {order} {storage}{' layered' if medium is not None else ''}"
+                      f" t_fuse {t_fuse}", sim, state, twin)
+        del twin
     return sim, state, secs, (u0, m, src, coords)
 
 
@@ -771,8 +833,12 @@ def phase_layered_gate(tt, dev, order):
     _, c_true, _ = tt.truth_run_ring(u0, u0, m, grid, dt, nsteps, src, coords, device=dev)
     reset_counts()
     sim = tt.Simulator(grid, tt.SimConfig(dt=dt, nsteps=nsteps), m, coords, device=dev)
-    state = sim.run(sim.prepare_state(u0, u0), src, nsteps)
+    state = sim.prepare_state(u0, u0)
+    twin = tt.Simulator._copy(state)
+    state = sim.run(state, src, nsteps)
     modes = launches_by_mode()
+    check_graphed(f"layered gate order {order}", sim, state, eager_run(sim, twin, src, [nsteps]))
+    del twin
     pattern = rf"B R={grid.radius} K=\d float32 w"
     check_launches(f"layered gate order {order}", modes, [pattern], [pattern])
     c = sim.extract_state(state)[1]
@@ -1135,14 +1201,21 @@ def phase_kernel_cuda(tt, dev, smi):
     check_launches("kernel_cuda", modes, [r"A R=2 float32 scalar"], [r"A R=2 float32 scalar"])
     ring = tt.simulate_ring(z, z, m, grid, tt.SimConfig(nsteps=nsteps), src, coords, device=dev)
     truth = tt.truth_run_ring(z, z, m, grid, 0.001, nsteps, src, coords, device=dev)
+    # kernel_cuda's run_timed replays graphs (5 warmup steps, then 45): the
+    # eager loop over the same spans
+    sim = tt.Simulator(grid, tt.SimConfig(nsteps=nsteps, ring="exact"), m, coords, device=dev)
+    eager = sim.extract_state(eager_run(sim, sim.prepare_state(z, z, z), src, (5, nsteps - 5)))
+    del sim
     tm = nsteps - 1
-    for slot, name, want, t in zip((tm % 3, (tm + 1) % 3, (tm + 2) % 3),
-                                   ("u_N-1", "u_N", "u_N-2"), ring, truth):
+    for slot, name, want, e, t in zip((tm % 3, (tm + 1) % 3, (tm + 2) % 3),
+                                      ("u_N-1", "u_N", "u_N-2"), ring, eager, truth):
         same, l2 = np.array_equal(u[slot], want), rel_l2(u[slot], t)
-        print(f"  kernel_cuda slot {slot} ({name}): bitwise simulate_ring {same}, rel-L2"
-              f" {l2:.3e} vs f64 truth")
-        if not same or not l2 < GATE_TOL:
-            raise AssertionError(f"kernel_cuda slot {slot}: bitwise {same}, rel-L2 {l2}")
+        same_eager = np.array_equal(u[slot], e)
+        print(f"  kernel_cuda slot {slot} ({name}): bitwise simulate_ring {same}, bitwise the"
+              f" eager engine.run_scan {same_eager}, rel-L2 {l2:.3e} vs f64 truth")
+        if not same or not same_eager or not l2 < GATE_TOL:
+            raise AssertionError(f"kernel_cuda slot {slot}: bitwise {same}, eager {same_eager},"
+                                 f" rel-L2 {l2}")
     if not timers.section0 > 0:
         raise AssertionError(f"kernel_cuda: Profiler.section0 = {timers.section0}")
     print(f"  kernel_cuda {n}^3 x {nsteps}: launches {modes}; Profiler section0"
@@ -1187,7 +1260,12 @@ def phase_checkpoint(tt, dev):
     grid, m, src, coords, u0 = main_config(tt)
     cfg = tt.SimConfig(dt=0.001, nsteps=nsteps)
     sim = tt.Simulator(grid, cfg, m, coords, device=dev)
-    ref = sim.extract_state(sim.run(sim.prepare_state(u0, u0), src, nsteps))
+    state = sim.prepare_state(u0, u0)
+    twin = tt.Simulator._copy(state)
+    state = sim.run(state, src, nsteps)
+    check_graphed("checkpoint's unbroken run", sim, state, eager_run(sim, twin, src, [nsteps]))
+    ref = sim.extract_state(state)
+    del state, twin
     with tempfile.TemporaryDirectory() as tmp:
         fmt = tmp + "/ckpt_{step:06d}.npz"
         reset_counts()
@@ -1372,24 +1450,32 @@ def phase_trace(tt, dev, smi):
     """TRACE_STEPS main-path steps (512^3, fast ring, kernel B) under
     tracing.trace: the device's busy share of the window, the union of its
     kernel and copy intervals over the window's wall time (the profiler's
-    own host cost included), and the device time by kernel. Returns the
-    launches per mode. The profiler slows the host's launches, so the same
-    number of steps just before the traced window is timed without it, and
-    the traced busy time is also given as a share of that."""
+    own host cost included), and the device time by kernel. The Simulator
+    replays a graph per window: both windows' graphs are captured before
+    them (a window of TRACE_STEPS = 5 K = 2 blocks swaps the two buffers,
+    so two spans capture both roles). The profiler's kernel-B intervals
+    must equal the launch counters of the traced window. The profiler
+    slows the host, so the same number of steps just before the traced
+    window is timed without it, and the traced busy time is also given as a
+    share of that. Returns the launches per mode."""
     import torch
 
     from tpufdtd_torch.utils import tracing
 
-    n0, n1 = 6, 6 + TRACE_STEPS
-    grid, m, src, coords, u0 = main_config(tt, nsteps=n1 + TRACE_STEPS)
-    sim = tt.Simulator(grid, tt.SimConfig(dt=0.001, nsteps=n1 + TRACE_STEPS), m, coords,
+    n0 = 6
+    windows = [n0 + i * TRACE_STEPS for i in range(5)]  # two captures, timed, traced
+    grid, m, src, coords, u0 = main_config(tt, nsteps=windows[-1])
+    sim = tt.Simulator(grid, tt.SimConfig(dt=0.001, nsteps=windows[-1]), m, coords,
                        device=dev)
     state = sim.run(sim.prepare_state(u0, u0), src[:n0], n0)
+    for a, b in zip(windows[:2], windows[1:3]):
+        state = sim.run(state, src[a:b], TRACE_STEPS)
+    captured = len(sim.graphs)
     # the window before, without the profiler: CUDA events around it
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     tracing.sync(state)
     start.record()
-    state = sim.run(state, src[n0:n1], TRACE_STEPS)
+    state = sim.run(state, src[windows[2]:windows[3]], TRACE_STEPS)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -1397,27 +1483,131 @@ def phase_trace(tt, dev, smi):
     with tempfile.TemporaryDirectory() as logdir:
         with tracing.trace(logdir) as prof:
             t0 = time.perf_counter()
-            state = sim.run(state, src[n1:], TRACE_STEPS)
+            state = sim.run(state, src[windows[3]:], TRACE_STEPS)
             tracing.sync(state)
             span_us = (time.perf_counter() - t0) * 1e6
         trace_mib = os.path.getsize(os.path.join(logdir, "trace.json")) / 2**20
+    if len(sim.graphs) != captured:
+        raise AssertionError(f"trace: a capture inside a timed window ({captured} graphs before,"
+                             f" {len(sim.graphs)} after)")
     modes = launches_by_mode()
     check_launches("trace", modes, [r"B R=2 K=\d float32 m"], [r"B R=2 K=2 float32 m"])
     busy = tracing.device_busy_us(prof)
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced_b = sum(1 for e in device_events if "sweep" in e.name)
+    counted_b = sum(modes.values())
     by_name = sorted(((getattr(e, "self_device_time_total", None)
                        or getattr(e, "self_cuda_time_total", 0.0), e.key)
                       for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)[:6]
-    print(f"  trace of {TRACE_STEPS} main-path steps ({MAIN_N}^3, K={sim.engine.sweep_k}):"
-          f" device busy {busy / 1e3:.3f} ms of a {span_us / 1e3:.3f} ms window,"
+    print(f"  trace of {TRACE_STEPS} main-path steps ({MAIN_N}^3, K={sim.engine.sweep_k}, one"
+          f" graph replay): device busy {busy / 1e3:.3f} ms of a {span_us / 1e3:.3f} ms window,"
           f" busy share {busy / span_us:.4f}, idle share {1 - busy / span_us:.4f}; the same"
           f" {TRACE_STEPS} steps before it without the profiler {plain_ms:.3f} ms (CUDA events),"
           f" the traced busy time's share of that {busy / 1e3 / plain_ms:.4f}; device ms by"
           f" name: " + ", ".join(f"{k[:48]} {t / 1e3:.3f}" for t, k in by_name if t)
           + f"; Chrome trace {trace_mib:.1f} MiB; launches {modes} [{smi}]")
+    print(f"  trace: {len(device_events)} device intervals, {traced_b} of kernel B against"
+          f" {counted_b} kernel-B launches counted")
+    if traced_b != counted_b:
+        raise AssertionError(f"trace: the profiler recorded {traced_b} kernel-B intervals in the"
+                             f" replayed graph, the counters {counted_b} launches")
     if not busy > 0:
         raise AssertionError("trace: torch.profiler recorded no device time")
     return modes
+
+
+# Phase 19: each path through its Simulator's graph and through the eager
+# loop on copies of one random state, 512^3 x 50 with the Ricker source:
+# name -> (order, layered, storage, t_fuse)
+GRAPH_PATHS = {
+    "order 4": (4, False, "float32", 0),
+    "order 6 (deep K = 3)": (6, False, "float32", 0),
+    "order 12 (exact ring, kernel A)": (12, False, "float32", 0),
+    "order 4 layered bf16 (bf16 + w)": (4, True, "bfloat16", 0),
+    "order 4 t_fuse 5 (deep K = 5)": (4, False, "float32", 5),
+}
+
+
+def print_graphs(label, sim):
+    for key, g in sim.graphs.items():
+        ring, n, rows = key[0], key[1], key[2]
+        deltas = {k: v for d in g.deltas for k, v in d.items()}
+        print(f"  {label}: graph of {n} steps on the {'fast' if ring else 'exact'} ring,"
+              f" sources {rows}: capture {g.seconds:.3f} s, {g.nodes} nodes ({g.kernels}"
+              f" kernels),"
+              f" launches a replay {deltas}")
+
+
+def phase_graphs(tt, dev):
+    """Phase 19: GRAPH_PATHS bitwise the eager engine.run_scan, and the main
+    path on one set of buffers with two source tables, each replay bitwise
+    the eager loop with its own table, from one capture; then a capture
+    that fails raises, with no launch, write or graph left. Prints each
+    graph's capture seconds, node and kernel-node counts and launches a
+    replay."""
+    import torch
+
+    from tpufdtd_torch.harness import span_times
+    from tpufdtd_torch.stepper import _buffers as buffers
+
+    nsteps = 50
+    for name, (order, layered, storage, t_fuse) in GRAPH_PATHS.items():
+        sim, src = span_times.make_sim(tt, MAIN_N, order, layered, storage, t_fuse)
+        state = sim.prepare_state_random(7)
+        twin = tt.Simulator._copy(state)
+        state = sim.run(state, src, nsteps)
+        check_graphed(name, sim, state, eager_run(sim, twin, src, [nsteps]))
+        print_graphs(name, sim)
+        del sim, state, twin
+    sim, src = span_times.make_sim(tt, MAIN_N, 4, False, "float32", 0)
+    state = sim.prepare_state_random(8)
+    start = tt.Simulator._copy(state)
+    outs = []
+    for table in (src, -2.0 * src[::-1]):
+        for b, v in zip(buffers(state), buffers(start)):
+            b.copy_(v)
+        out = sim.run(state, table, nsteps)
+        check_graphed("order 4, a source table on the same buffers", sim, out,
+                      eager_run(sim, tt.Simulator._copy(start), table, [nsteps]))
+        outs.append(tt.Simulator._copy(out))
+    if len(sim.graphs) != 1 or same_state(*outs):
+        raise AssertionError(f"two source tables: {len(sim.graphs)} graphs, outputs equal"
+                             f" {same_state(*outs)}")
+    print_graphs("order 4, two source tables", sim)
+    # a capture that fails (a spare level in another dtype: kernel B refuses
+    # it inside the capture) raises, launches nothing and leaves the state
+    U, spare = buffers(start)
+    bad = {"sweep": (U, spare.to(torch.bfloat16))}
+    before, untouched = launches_by_mode(), U.clone()
+    try:
+        sim.run(bad, src, nsteps)
+    except ValueError as e:
+        failed = str(e)
+    else:
+        raise AssertionError("a capture on a bf16 spare did not raise")
+    if launches_by_mode() != before or not torch.equal(U, untouched) or len(sim.graphs) != 1:
+        raise AssertionError("the failed capture launched, wrote or kept something")
+    print(f"  a failed capture raises and runs nothing eagerly: {failed}")
+
+
+LADDER = (128, 256, 512, 1024)  # phase 20
+
+
+def phase_ladder(tt, smi):
+    """Phase 20: the order-4 path at each LADDER size, ms/step through the
+    Simulator's graphs and through the eager loop on the same random
+    states (harness/span_times.py), median of 3 spans each."""
+    from tpufdtd_torch.harness import span_times
+
+    for n in LADDER:
+        sim, src = span_times.make_sim(tt, n, 4, False, "float32", 0)
+        res = span_times.time_path(sim, src, 3, eager=True)
+        g, e = res["median_ms_step"], res["eager_median_ms_step"]
+        print(f"  ladder {n}^3 order 4 (K={sim.engine.sweep_k}): graph {g:.4f} ms/step, eager"
+              f" {e:.4f} ms/step ({g / e:.3f} of it); spans {res['ms_step']} and"
+              f" {res['eager_ms_step']} [{smi}]")
+        del sim
 
 
 def phase_bench(tt, dev):
@@ -1527,6 +1717,10 @@ def run_phases(tt, dev, smi):
     paths["trace"] = phase_trace(tt, dev, smi)
     print("[18 bench]")
     paths["bench"] = phase_bench(tt, dev)
+    print(f"[19 captured graphs against the eager loop {MAIN_N}^3 x 50]")
+    phase_graphs(tt, dev)
+    print("[20 ladder: graph against eager]")
+    phase_ladder(tt, smi)
 
     def launched(pattern):
         """Launches of the modes matching `pattern`, per path that ran any."""

@@ -19,8 +19,10 @@ import torch
 
 import tpufdtd_torch as tt
 from tpufdtd_torch.harness import media
+from tpufdtd_torch.harness.span_times import eager_run
 from tpufdtd_torch.ops import stencil_step as A
 from tpufdtd_torch.ops import stencil_sweep as B
+from tpufdtd_torch.stepper import GRAPH_CACHE, Simulator, _buffers, _state_of
 
 pytestmark = pytest.mark.gpu
 RTOL = 1e-5
@@ -776,3 +778,292 @@ def test_overlap_interior_slab_does_not_wait_on_the_exchange(dev, monkeypatch):
         torch.cuda.synchronize()
         sims[overlap] = sim.extract_state(st)
     assert all(np.array_equal(a, b) for a, b in zip(sims["on"], sims["off"]))
+
+
+# The Simulator's captured spans (stepper.Simulator.graphs): each replay is
+# bitwise the engine's eager loop on a copy of the same state with the same
+# source rows, since it replays the same launches in the same order.
+GRAPH_N, GRAPH_STEPS = 64, 13  # 13 steps: a K = 2 span ends on a K = 1 block
+GRAPH_CASES = {  # name -> (order, layered, storage, t_fuse, ring): every mode and both forms
+    "order4": (4, False, "float32", 0, "auto"),
+    "order2_deep_k6": (2, False, "float32", 0, "auto"),
+    "order6_deep_k3": (6, False, "float32", 0, "auto"),
+    "order4_t_fuse5_deep": (4, False, "float32", 5, "auto"),
+    "order8_k1": (8, False, "float32", 0, "auto"),
+    "order8_t_fuse2": (8, False, "float32", 2, "auto"),
+    "order12_exact": (12, False, "float32", 0, "auto"),
+    "order4_exact": (4, False, "float32", 0, "exact"),
+    "order4_layered_w": (4, True, "float32", 0, "auto"),
+    "order8_layered_exact": (8, True, "float32", 0, "auto"),
+    "order4_bf16": (4, False, "bfloat16", 0, "auto"),
+    "order4_layered_bf16": (4, True, "bfloat16", 0, "auto"),
+    "order12_bf16_exact": (12, False, "bfloat16", 0, "auto"),
+}
+
+
+def _graph_sim(dev, order=4, layered=False, storage="float32", t_fuse=0, ring="auto",
+               nsteps=GRAPH_STEPS, warmup=5):
+    n = GRAPH_N
+    g = tt.Grid3D(n, n, n, order=order)
+    m = media.layered(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    cfg = tt.SimConfig(dt=0.001, nsteps=nsteps, warmup_steps=warmup, storage_dtype=storage,
+                       t_fuse=t_fuse, ring=ring)
+    sim = tt.Simulator(g, cfg, m, tt.default_source_coords(1, n, n, n), device=dev)
+    assert sim.graphs is not None
+    return sim, sim.prepare_state(*_zero_rim_pair(g, order))
+
+
+def _bitwise(a, b):
+    torch.cuda.synchronize()
+    return isinstance(a, dict) == isinstance(b, dict) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(_buffers(a), _buffers(b)))
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_replay_is_bitwise_eager(dev, case):
+    sim, state = _graph_sim(dev, *GRAPH_CASES[case])
+    src = tt.ricker_table(GRAPH_STEPS, 1, 0.001)
+    twin = Simulator._copy(state)
+    ptrs = {b.data_ptr() for b in _buffers(state)}
+    for _ in range(2):  # the second span starts from the roles the first returned
+        state = sim.run(state, src, GRAPH_STEPS)
+        twin = eager_run(sim, twin, src, [GRAPH_STEPS])
+        assert _bitwise(state, twin)
+        assert {b.data_ptr() for b in _buffers(state)} == ptrs  # advanced in place
+    assert 1 <= len(sim.graphs) <= 2
+
+
+def test_graph_takes_each_source_table_on_the_same_buffers(dev):
+    sim, state = _graph_sim(dev)
+    start = Simulator._copy(state)
+    tables = [tt.ricker_table(GRAPH_STEPS, 1, 0.001), -3.0 * tt.ricker_table(GRAPH_STEPS, 1, 0.002)]
+    outs = []
+    for src in tables:
+        for b, v in zip(_buffers(state), _buffers(start)):  # the same buffers, in the same roles
+            b.copy_(v)
+        out = sim.run(state, src, GRAPH_STEPS)
+        assert _bitwise(out, eager_run(sim, Simulator._copy(start), src, [GRAPH_STEPS]))
+        outs.append(Simulator._copy(out))
+    assert len(sim.graphs) == 1 and not _bitwise(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("case,graphs", [("order4", 2), ("order6_deep_k3", 2),
+                                         ("order12_exact", 3)])
+def test_graph_replays_count_their_launches(dev, case, graphs):
+    """The wrappers count at call time, which is at capture: each replay
+    adds the launches its capture recorded, and a capture adds none. Three
+    spans cycle the fast ring's two roles and the exact ring's three."""
+    sim, state = _graph_sim(dev, *GRAPH_CASES[case])
+    src = tt.ricker_table(GRAPH_STEPS, 1, 0.001)
+    A.reset_counts()
+    B.reset_counts()
+    eager_run(sim, Simulator._copy(state), src, [GRAPH_STEPS])
+    once = (dict(A.counts["kernel"]), dict(B.counts["kernel"]))
+    assert sum(once[0].values()) + sum(once[1].values()) > 0
+    A.reset_counts()
+    B.reset_counts()
+    for _ in range(3):
+        state = sim.run(state, src, GRAPH_STEPS)
+    assert len(sim.graphs) == graphs
+    assert (dict(A.counts["kernel"]), dict(B.counts["kernel"])) == tuple(
+        {k: 3 * v for k, v in c.items()} for c in once)
+    assert A.launches("plain") == B.launches("plain") == 0
+
+
+@pytest.mark.parametrize("case", ["order4", "order12_exact", "order4_layered_bf16"])
+@pytest.mark.parametrize("q", [1, 3])
+def test_run_timed_state_is_bitwise_run(dev, case, q):
+    sim, state = _graph_sim(dev, *GRAPH_CASES[case])
+    src = tt.ricker_table(GRAPH_STEPS, 1, 0.001)
+    twin = Simulator._copy(state)
+    timed, secs = sim.run_timed(state, src, timing_repeat=q)
+    assert secs > 0 and sim.last_clock == "cuda_event"
+    plain = sim.run(sim.run(twin, src[:5], 5), src[5:], GRAPH_STEPS - 5)
+    assert _bitwise(timed, plain)
+
+
+def test_graph_cache_stays_bounded(dev):
+    sim, _ = _graph_sim(dev)
+    src = tt.ricker_table(4, 1, 0.001)
+    states = [sim.prepare_state_random(seed) for seed in range(10)]  # ten sets of buffers
+    for st in states:
+        sim.run(st, src, 4)
+        assert len(sim.graphs) <= GRAPH_CACHE
+    assert len(sim.graphs) == GRAPH_CACHE
+
+
+@pytest.mark.parametrize("bad", ["spare_on_cpu", "spare_in_bf16", "target_on_cpu"])
+def test_failed_capture_raises_and_runs_nothing(dev, bad):
+    """A capture that fails (buffers off the card are refused before it, a
+    bf16 spare by kernel B's wrapper inside it) raises and leaves no
+    launch, write or graph: nothing retries eagerly."""
+    sim, state = _graph_sim(dev, ring="exact" if bad == "target_on_cpu" else "auto")
+    bufs = list(_buffers(state))
+    if bad == "spare_in_bf16":
+        bufs[1] = bufs[1].to(torch.bfloat16)
+    else:
+        bufs[-1] = bufs[-1].cpu()
+    state = _state_of(state, bufs)
+    before = [b.clone() for b in bufs]
+    A.reset_counts()
+    B.reset_counts()
+    with pytest.raises(ValueError):
+        sim.run(state, tt.ricker_table(GRAPH_STEPS, 1, 0.001), GRAPH_STEPS)
+    torch.cuda.synchronize()
+    assert A.launches() == B.launches() == A.launches("plain") == B.launches("plain") == 0
+    assert all(torch.equal(b, v) for b, v in zip(bufs, before))
+    assert len(sim.graphs) == 0
+
+
+def test_capture_records_on_the_simulators_card(dev, monkeypatch):
+    """The capture runs on a side stream of the Simulator's own card (not
+    torch.cuda.graph's shared default stream, made on whichever card was
+    current first), and its recorded graph holds a kernel node at least for
+    every launch counted; device="cuda" names the current card."""
+    from tpufdtd_torch import stepper
+
+    streams, real = [], torch.cuda.graph
+
+    def spy(graph, **kw):
+        streams.append(kw.get("stream"))
+        return real(graph, **kw)
+
+    monkeypatch.setattr(torch.cuda, "graph", spy)
+    sim, state = _graph_sim(dev)
+    sim.run(state, tt.ricker_table(GRAPH_STEPS, 1, 0.001), GRAPH_STEPS)
+    assert len(streams) == 1 and streams[0] is not None and streams[0].device == sim.device
+    (g,) = sim.graphs.values()
+    launched = sum(g.deltas[0].values()) + sum(g.deltas[2].values())
+    assert g.nodes >= g.kernels >= launched > 0
+    assert stepper._graph_nodes(g.graph) == (g.nodes, g.kernels)
+    g1 = tt.Grid3D(16, 16, 16)
+    plain = tt.Simulator(g1, tt.SimConfig(), np.full(g1.padded_shape, 1.5, np.float32),
+                         device="cuda")
+    assert plain.device == torch.device("cuda", torch.cuda.current_device())
+
+
+def test_capture_with_fewer_kernels_than_counted_raises(dev, monkeypatch):
+    """A recorded graph that holds fewer kernel nodes than the wrappers
+    counted at capture (its launches went elsewhere) raises, keeps no graph
+    and counts nothing."""
+    from tpufdtd_torch import stepper
+
+    sim, state = _graph_sim(dev)
+    before = Simulator._copy(state)
+    monkeypatch.setattr(stepper, "_graph_nodes", lambda graph: (0, 0))
+    A.reset_counts()
+    B.reset_counts()
+    with pytest.raises(RuntimeError, match="recorded 0 nodes"):
+        sim.run(state, tt.ricker_table(GRAPH_STEPS, 1, 0.001), GRAPH_STEPS)
+    assert A.launches() == B.launches() == 0 and len(sim.graphs) == 0
+    assert _bitwise(state, before)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA cards: a Simulator on a card that is not current")
+@pytest.mark.parametrize("case", ["order4", "order12_exact"])
+def test_graph_on_a_card_that_is_not_current(case):
+    """A Simulator on cuda:1 while cuda:0 is current captures, replays and
+    times on cuda:1: each span is bitwise the eager loop, and cuda:0 stays
+    current."""
+    torch.cuda.set_device(0)
+    sim, state = _graph_sim(torch.device("cuda", 1), *GRAPH_CASES[case])
+    src = tt.ricker_table(GRAPH_STEPS, 1, 0.001)
+    twin = Simulator._copy(state)
+    for _ in range(2):
+        state = sim.run(state, src, GRAPH_STEPS)
+        twin = eager_run(sim, twin, src, [GRAPH_STEPS])
+        torch.cuda.synchronize(1)
+        assert _bitwise(state, twin)
+    timed, secs = sim.run_timed(Simulator._copy(twin), src)
+    plain = sim.run(sim.run(Simulator._copy(twin), src[:5], 5), src[5:], GRAPH_STEPS - 5)
+    torch.cuda.synchronize(1)
+    assert secs > 0 and _bitwise(timed, plain)
+    assert torch.cuda.current_device() == 0
+    assert all(g.nodes > 0 for g in sim.graphs.values())
+
+
+@pytest.mark.parametrize("case", ["order4", "order2_deep_k6", "order12_exact",
+                                  "order4_layered_bf16"])
+def test_eager_loop_makes_no_implicit_sync(dev, case):
+    """A synchronisation inside the loop would end a capture: run the
+    eager loop with torch's sync debug mode raising on one."""
+    sim, state = _graph_sim(dev, *GRAPH_CASES[case])
+    table = torch.as_tensor(tt.ricker_table(GRAPH_STEPS, 1, 0.001), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim.engine.run_scan(state, sim.engine.m_args, table, GRAPH_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_run_benchmark_split_modes_and_timing_repeat_on_card(dev, capsys):
+    from tpufdtd_torch.harness import perf
+
+    for split, word in ((True, "measured"), (False, "estimated")):
+        res = perf.run_benchmark("cuda", [32], 10, 1, 1, None, "float32", None, True, 0.8, 0,
+                                 "auto", split, 4, 2, device=dev)
+        assert len(res) == 1 and res[0]["device_time_s"] > 0 and not res[0]["nan"]
+        assert f"split {word}" in capsys.readouterr().out
+
+
+def test_run_sharded_benchmark_baseline_single_on_one_card(dev):
+    from tpufdtd_torch.harness import perf_sharded
+
+    res = perf_sharded.run_sharded_benchmark(2, (32,), 10, 1, 1, None, False, True,
+                                             devices=[dev, dev])
+    # shards on one card give no scaling figure, so the one-shard run is skipped
+    assert len(res) == 1 and res[0]["device_time_s"] > 0
+    assert res[0]["single_device_time_s"] is None and res[0]["scaling_eff_pct"] is None
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA cards: one shard on each")
+def test_run_sharded_benchmark_baseline_single_on_two_cards():
+    """Shards on cards of their own: baseline_single times the one-shard
+    run and fills Scaling_Eff from it."""
+    from tpufdtd_torch.harness import perf_sharded
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    res = perf_sharded.run_sharded_benchmark(2, (32,), 10, 1, 1, None, False, True,
+                                             devices=cards)
+    assert len(res) == 1 and res[0]["cards"] == 2 and res[0]["single_device_time_s"] > 0
+    assert res[0]["scaling_eff_pct"] > 0
+
+
+COLD_CAPTURE = """
+import numpy as np, torch, tpufdtd_torch as tt
+from tpufdtd_torch.stepper import _buffers
+n = 64
+for order, kw in ((4, {}), (2, {}), (6, {}), (12, {}), (4, {"storage_dtype": "bfloat16"}),
+                  (4, {"t_fuse": 5})):
+    g = tt.Grid3D(n, n, n, order=order)
+    sim = tt.Simulator(g, tt.SimConfig(dt=0.001, nsteps=13, **kw),
+                       np.full(g.padded_shape, 1.5, np.float32),
+                       tt.default_source_coords(1, n, n, n), device="cuda")
+    u = np.zeros(g.padded_shape, np.float32)
+    u[g.interior_slices()] = np.random.default_rng(order).standard_normal((n, n, n))
+    state = sim.prepare_state(u, u)
+    twin = tt.Simulator._copy(state)
+    src = tt.ricker_table(13, 1, 0.001)
+    out = sim.run(state, src, 13)  # this mode's kernels launch first inside the capture
+    want = sim.engine.run_scan(twin, sim.engine.m_args, torch.as_tensor(src, device="cuda"), 13)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_buffers(out), _buffers(want))), (order, kw)
+print("cold captures bitwise")
+"""
+
+
+def test_a_kernel_first_launched_inside_a_capture(dev):
+    """A process's first span records kernels that never ran before (CUDA
+    loads them lazily, here inside the capture): in a fresh process, each
+    mode's first replay is bitwise the eager loop run after it."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    res = subprocess.run([sys.executable, "-c", COLD_CAPTURE], capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=900)
+    assert res.returncode == 0 and "cold captures bitwise" in res.stdout, res.stderr[-3000:]

@@ -67,9 +67,10 @@ def test_state_bytes_fits_512_on_80gb():
     # bf16 levels take half the bytes; a layered medium adds its f32 m and w
     g = Grid3D(512, 512, 512)
     vol = int(np.prod(g.padded_shape))
-    assert state_bytes(g, "cuda") - state_bytes(g, "cuda", "bfloat16") == 8 * vol
+    assert state_bytes(g, "cuda") - state_bytes(g, "cuda", storage_dtype="bfloat16") == 8 * vol
     assert state_bytes(g, "cuda", medium="layered") - state_bytes(g, "cuda") == 8 * vol
-    assert state_bytes(Grid3D(1024, 1024, 1024), "cuda", "bfloat16", "layered") < 0.8 * 80e9
+    assert state_bytes(Grid3D(1024, 1024, 1024), "cuda", storage_dtype="bfloat16",
+                       medium="layered") < 0.8 * 80e9
 
 
 def test_byte_model_of_the_modes():

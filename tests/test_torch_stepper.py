@@ -458,3 +458,25 @@ def test_explicit_depth_beyond_six_raises():
     m = np.full(g.padded_shape, 1.5, np.float32)
     with pytest.raises(ValueError, match="beyond the fused sweep"):
         tt.Simulator(g, tt.SimConfig(t_fuse=7), m, device="cpu")
+
+
+@pytest.mark.parametrize("backend,ring", [("cuda", "auto"), ("cuda", "exact"),
+                                          ("torch", "auto")])
+def test_simulator_stays_eager_off_the_card(backend, ring):
+    """Off the card (and on "torch") the Simulator captures no graph: each
+    span is the engine's eager loop, bitwise, and a span of 0 steps returns
+    the state as it was."""
+    g, _ = _grids(12, 12, 12)
+    coords = tt.default_source_coords(1, 12, 12, 12)
+    sim = tt.Simulator(g, tt.SimConfig(nsteps=7, backend=backend, ring=ring),
+                       np.full(g.padded_shape, 1.5, np.float32), coords, device="cpu")
+    assert sim.graphs is None
+    src = tt.ricker_table(7, 1, 0.001)
+    up, uc = _fast_ic(g)
+    state = sim.prepare_state(up, uc)
+    assert sim.run(state, src, 0) is state
+    twin = sim.prepare_state(up, uc)
+    got = sim.extract_state(sim.run(state, src, 7))
+    want = sim.extract_state(sim.engine.run_scan(twin, sim.engine.m_args, torch.tensor(src), 7))
+    assert len(got) == (2 if ring == "auto" and backend == "cuda" else 3)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))

@@ -8,8 +8,10 @@ peaks; a CSV row per grid.
 
 Times are CUDA-event times of the post-warmup span (Simulator.run_timed);
 this path raises on any device that is not CUDA. Each rep starts from a
-random state made on the device. The section split is measured: the same
-span is timed once more without sources, and section1 = full - that.
+random state made on the device. The section split is measured by
+default: the same span is timed once more without sources, and section1 =
+full - that; measure_split=False gives the JAX package's work-share
+estimate instead (section1 = 8 nsrc / (cells + 8 nsrc) of the time).
 
 storage_dtype "bfloat16" stores the levels in bf16 (f32 compute); medium
 "layered" replaces m = 1.5 by the layered medium of harness/media.py (a
@@ -37,18 +39,24 @@ from .media import layered
 DEFAULT_GRIDS = (32, 64, 96, 128, 192, 256, 384, 512, 640, 768, 896, 1024)
 
 
-def state_bytes(grid: Grid3D, method: str, storage_dtype: str = "float32",
-                medium: str = "uniform") -> int:
+def state_bytes(grid: Grid3D, method: str, t_fuse: int = 0, storage_dtype: str = "float32",
+                *, medium: str = "uniform") -> int:
     """Working-set estimate for the skip check (the reference's guard,
     main.cpp:337-341), over levels of the padded shape (halo = order, so
     536^3 per level at order 12), at 4 B per level element in f32 and 2 B in
     bf16: the fast ring holds two 2-level buffers (the exact ring of "cuda",
     three levels, fits the same guard), plus the f32 m and w of a layered
     medium; the eager exact ring holds three levels, the f32 m and about six
-    f32 interior-sized temporaries."""
+    f32 interior-sized temporaries. As in the JAX package, every method but
+    the eager one ("torch", or the JAX package's "jnp") takes the first
+    estimate, its "pallas" included. `t_fuse` is the JAX package's argument
+    and changes nothing here: there t_fuse 1 and 2 select packed engines of
+    four levels, while in the port every depth runs on kernel B's fast
+    ring, whose two buffers this estimate counts."""
+    del t_fuse
     volp = int(np.prod(grid.padded_shape))
     esz = 2 if storage_dtype == "bfloat16" else 4
-    if method == "cuda":
+    if method not in ("torch", "jnp"):
         return volp * (4 * esz + (8 if medium == "layered" else 0)) + (256 << 20)
     return volp * (3 * esz + 7 * 4) + (256 << 20)
 
@@ -60,16 +68,24 @@ def run_benchmark(
     nsrc: int = 1,
     reps: int = 5,
     csv_path: Optional[str] = "benchmark.csv",
+    storage_dtype: str = "float32",
     peaks: Optional[DevicePeaks] = None,
     verbose: bool = True,
     hbm_budget_frac: float = 0.8,
     t_fuse: int = 0,
+    pair: str = "auto",
+    measure_split: bool = True,
     order: int = 4,
-    storage_dtype: str = "float32",
-    medium: str = "uniform",
+    timing_repeat: Optional[int] = None,
     *,
+    medium: str = "uniform",
     device="cuda",
 ):
+    """The JAX package's run_benchmark, positional order included; `pair`
+    selects no code (SimConfig.pair); `timing_repeat` goes to
+    Simulator.run_timed, None meaning 1 (the JAX package's automatic stretch
+    evens out its remote device's dispatch jitter, which CUDA events around
+    the span do not see). Returns one dict per grid run."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"the perf phase times CUDA devices only; got {device!r}")
@@ -80,7 +96,7 @@ def run_benchmark(
 
     for gs in grids:
         grid = Grid3D(gs, gs, gs, order=order)
-        need = state_bytes(grid, method, storage_dtype, medium)
+        need = state_bytes(grid, method, t_fuse, storage_dtype, medium=medium)
         if need > peaks.hbm_gib * (1 << 30) * hbm_budget_frac:
             if verbose:
                 print(f"Skipping {gs}^3 grid (requires {need / 2**30:.1f} GB)")
@@ -89,7 +105,7 @@ def run_benchmark(
         src = ricker_table(timesteps, nsrc, 0.001) if nsrc > 0 else None
         coords = default_source_coords(nsrc, gs, gs, gs) if nsrc > 0 else None
         cfg = SimConfig(dt=0.001, nsteps=timesteps, backend=method, t_fuse=t_fuse,
-                        storage_dtype=storage_dtype)
+                        storage_dtype=storage_dtype, pair=pair)
         sim = Simulator(grid, cfg, m, coords, device=dev)
         bytes_pt = metrics.BYTES_NAIVE
         if method == "cuda":
@@ -103,7 +119,7 @@ def run_benchmark(
         def timed(seed, table):
             t0 = time.perf_counter()
             state = sim.prepare_state_random(seed)
-            _, secs = sim.run_timed(state, table)
+            _, secs = sim.run_timed(state, table, timing_repeat or 1)
             torch.cuda.synchronize(dev)
             return secs, time.perf_counter() - t0
 
@@ -111,13 +127,20 @@ def run_benchmark(
         runs = [timed(1 + rep, src) for rep in range(reps)]
         device_times = [r[0] for r in runs]
         total_times = [r[1] for r in runs]
-        if nsrc > 0:
+        split_mode = "measured"
+        if nsrc > 0 and measure_split:
             s0_meas = min(timed(100, None)[0], min(device_times))
             s1_meas = max(0.0, float(np.mean(device_times)) - s0_meas)
+            s0_times = [t - s1_meas for t in device_times]
+            s1_times = [s1_meas for _ in device_times]
+        elif nsrc > 0:
+            split_mode = "estimated"
+            s1_share = (8.0 * nsrc) / (grid.interior_cells + 8.0 * nsrc)
+            s0_times = [t * (1 - s1_share) for t in device_times]
+            s1_times = [t * s1_share for t in device_times]
         else:
-            s1_meas = 0.0
-        s0_times = [t - s1_meas for t in device_times]
-        s1_times = [s1_meas for _ in device_times]
+            s0_times = list(device_times)
+            s1_times = [0.0 for _ in device_times]
         overheads = [max(0.0, t - d) for t, d in zip(total_times, device_times)]
 
         dstats = compute_stats(device_times)
@@ -137,7 +160,8 @@ def run_benchmark(
         if verbose:
             print(f"Total time:   {tstats.mean*1e3:.3f} ± {tstats.stddev*1e3:.3f} ms\n"
                   f"Device time:  {dstats.mean*1e3:.3f} ± {dstats.stddev*1e3:.3f} ms"
-                  f"  (section0={s0stats.mean*1e3:.3f}, section1={s1stats.mean*1e3:.3f} ms)\n"
+                  f"  (section0={s0stats.mean*1e3:.3f}, section1={s1stats.mean*1e3:.3f} ms,"
+                  f" split {split_mode})\n"
                   f"Perf:         {gfstats.mean:.1f} GFLOP/s, {gbstats.mean:.1f} GB/s\n"
                   f"{peaks.name}: {compute_eff:.1f}% compute, "
                   f"{memory_eff:.1f}% memory BW efficiency")

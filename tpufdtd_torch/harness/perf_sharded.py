@@ -7,9 +7,10 @@ reference's 24-column CSV schema (utils/csvio.py) extended with Devices and
 Scaling_Eff(%):
 
   * cells/s for the whole mesh and per shard,
-  * Scaling_Eff(%), left blank: the JAX package fills it from a one-device
-    run of the same grid, which needs a card per shard; the port has run
-    only on one card (ROADMAP Queue 1 item 6).
+  * Scaling_Eff(%): with baseline_single, a one-shard run of the same
+    global grid against the mesh's time x shards, as the JAX package
+    reports it; filled only where every shard has its own card, and blank
+    otherwise.
 
 When shards share a card (`devices=["cuda:0"] * 4`), the same program,
 exchanges and freeze cases run on that card, and the row's method carries
@@ -107,20 +108,33 @@ def timed_run(sim, grid: Grid3D, cfg: SimConfig, src, seed: int, m: np.ndarray) 
 
 
 def run_sharded_benchmark(
-    n_shards: int,
+    n_devices: Optional[int] = None,
     grids: Iterable[int] = (128, 256),
     timesteps: int = 50,
     nsrc: int = 1,
     reps: int = 3,
     csv_path: Optional[str] = "benchmark_sharded_torch.csv",
+    verbose: bool = True,
+    baseline_single: bool = True,
+    *,
+    n_shards: Optional[int] = None,
     devices: Optional[Sequence] = None,
     order: int = 4,
 ):
-    """Benchmark the sharded engines over n_shards shards of a 1-D mesh;
-    returns row dicts. `devices` places the shards (default: one card
-    each, raising when there are fewer)."""
+    """Benchmark the sharded engines over n_devices (or, by its keyword
+    here, n_shards) shards of a 1-D mesh; returns row dicts. `devices`
+    places the shards (default: one card each, raising when there are
+    fewer). baseline_single times a one-shard run of the same global grid
+    on the first shard's device, for Scaling_Eff, where every shard has its
+    own card; shards that share a card give no scaling figure, so there it
+    is skipped."""
     from ..parallel import ShardedSimulator, make_mesh
 
+    if n_shards is not None and n_devices not in (None, n_shards):
+        raise ValueError(f"n_devices={n_devices} and n_shards={n_shards} disagree")
+    n_shards = n_devices if n_shards is None else n_shards
+    if n_shards is None:
+        raise TypeError("run_sharded_benchmark needs n_devices (or n_shards)")
     mesh = make_mesh(n_shards, devices=devices)
     shared = mesh.cards < mesh.size
     tag = f"@{mesh.cards}card" if shared else ""
@@ -129,7 +143,8 @@ def run_sharded_benchmark(
     for gs in grids:
         grid = Grid3D(gs, gs, gs, order=order)
         if gs % n_shards:
-            print(f"Skipping {gs}^3 (nx % {n_shards} != 0)")
+            if verbose:
+                print(f"Skipping {gs}^3 (nx % {n_shards} != 0)")
             continue
         cfg = SimConfig(dt=0.001, nsteps=timesteps, backend="cuda")
         src = ricker_table(timesteps, nsrc, cfg.dt) if nsrc else None
@@ -137,19 +152,32 @@ def run_sharded_benchmark(
         m = np.full(grid.padded_shape, 1.5, np.float32)
         sim = ShardedSimulator(grid, cfg, m, mesh, src_coords=coords)
         engine = f"sweep K={sim.sweep.K}" if sim.sweep is not None else "per-step"
-        print(f"Sharded {gs}^3 x {timesteps}, order {order}, {n_shards} shards on"
-              f" {mesh.cards} card(s) [{engine} engine]" + (f": {NO_SCALING}" if shared else ""))
+        if verbose:
+            print(f"Sharded {gs}^3 x {timesteps}, order {order}, {n_shards} shards on"
+                  f" {mesh.cards} card(s) [{engine} engine]"
+                  + (f": {NO_SCALING}" if shared else ""))
         times = [timed_run(sim, grid, cfg, src, rep, m) for rep in range(reps + 1)][1:]
         dstats = compute_stats(times)
+        single_s = scal_eff = None
+        if baseline_single and n_shards > 1 and not shared:
+            sim1 = ShardedSimulator(grid, cfg, m, make_mesh(1, devices=mesh.devices[:1]),
+                                    src_coords=coords)
+            single_s = [timed_run(sim1, grid, cfg, src, rep, m) for rep in range(2)][-1]
+            del sim1
+            if not shared:
+                scal_eff = single_s / (dstats.mean * n_shards) * 100.0
         gcells = gs**3 * timesteps / dstats.mean / 1e9
         gflops = metrics.gflops_model(gs, gs, gs, timesteps, dstats.mean, grid.order)
         gbps = metrics.gbps_model(gs, gs, gs, timesteps, dstats.mean, metrics.BYTES_OPTIMIZED)
         compute_eff = gflops / (peaks.fp32_gflops * mesh.cards) * 100.0
         memory_eff = gbps / (peaks.hbm_gbps * mesh.cards) * 100.0
-        print(f"  device time {dstats.mean * 1e3:.3f} ± {dstats.stddev * 1e3:.3f} ms |"
-              f" {dstats.mean / (timesteps - min(cfg.warmup_steps, timesteps)) * 1e3:.4f}"
-              f" ms/step | {gcells:.2f} Gcell/s ({gcells / n_shards:.2f}/shard) |"
-              f" mem eff {memory_eff:.1f}% | {peaks.name}")
+        if verbose:
+            print(f"  device time {dstats.mean * 1e3:.3f} ± {dstats.stddev * 1e3:.3f} ms |"
+                  f" {dstats.mean / (timesteps - min(cfg.warmup_steps, timesteps)) * 1e3:.4f}"
+                  f" ms/step | {gcells:.2f} Gcell/s ({gcells / n_shards:.2f}/shard) |"
+                  f" mem eff {memory_eff:.1f}% | {peaks.name}"
+                  + ("" if single_s is None else f" | one shard {single_s * 1e3:.3f} ms")
+                  + ("" if scal_eff is None else f" | strong scaling {scal_eff:.1f}%"))
         if csv_path:
             s1_share = (8.0 * nsrc) / (grid.interior_cells + 8.0 * nsrc)
             append_sharded_row(csv_path, [
@@ -163,12 +191,13 @@ def run_sharded_benchmark(
                 compute_eff, memory_eff,
                 metrics.arithmetic_intensity(grid.order, metrics.BYTES_OPTIMIZED),
                 gs, gs, gs, timesteps, nsrc, grid.order,
-                n_shards, None,
+                n_shards, scal_eff,
             ])
         results.append({
             "size": gs, "shards": n_shards, "cards": mesh.cards, "engine": engine,
             "device_time_s": dstats.mean, "gcells_per_s": gcells,
             "gcells_per_s_per_shard": gcells / n_shards, "memory_eff_pct": memory_eff,
+            "single_device_time_s": single_s, "scaling_eff_pct": scal_eff,
         })
         del sim
     return results

@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+
 from .config import Grid3D
 
 
@@ -41,3 +43,26 @@ class Layout:
                   self.pad_lo[ax] + (d if ax == axis else 0) + n[ax])
             for ax in range(3)
         )
+
+    @property
+    def is_reference(self) -> bool:
+        h = self.grid.halo
+        return self.pad_lo == (h, h, h) and self.pad_hi == (h, h, h)
+
+    def embed_region(self) -> Tuple[slice, slice, slice]:
+        """Where a reference-layout array lands in this layout (the whole
+        array for the reference layout)."""
+        h = self.grid.halo
+        n = (self.grid.nx, self.grid.ny, self.grid.nz)
+        return tuple(slice(self.pad_lo[i] - h, self.pad_lo[i] + n[i] + h) for i in range(3))
+
+    def embed(self, arr_ref) -> np.ndarray:
+        """A copy of a reference-layout array in this layout, outer pads zero."""
+        arr_ref = np.asarray(arr_ref)
+        out = np.zeros(self.padded_shape, dtype=arr_ref.dtype)
+        out[self.embed_region()] = arr_ref
+        return out
+
+    def extract(self, arr) -> np.ndarray:
+        """A copy of this layout's array in the reference layout."""
+        return np.array(np.asarray(arr)[self.embed_region()])

@@ -63,12 +63,18 @@ class Mesh:
         return len(set(self.devices))
 
 
-def make_mesh(n_devices: Optional[int] = None, shape: Optional[Tuple[int, int]] = None,
+def make_mesh(n_devices: Optional[int] = None, axis: str = "x",
+              shape: Optional[Tuple[int, int]] = None, axes: Tuple[str, str] = ("x", "y"), *,
               devices: Optional[Sequence] = None) -> Mesh:
     """A 1-D mesh of n_devices shards (default: one per visible card), or a
-    2-D (ndx, ndy) mesh when `shape` is given. Without `devices`, shard i
+    2-D (ndx, ndy) mesh when `shape` is given: the JAX package's call.
+    `axis` and `axes` name the mesh's axes, "x" and ("x", "y") as there:
+    the shards split x, and y on a 2-D mesh. Without `devices`, shard i
     takes cuda:i, and too few cards raise. An explicit `devices` list, one
     entry per shard, may repeat a device ("cpu" included)."""
+    if axis != "x" or tuple(axes) != ("x", "y"):
+        raise ValueError(f"axis {axis!r}, axes {tuple(axes)}: the mesh's axes are 'x' and"
+                         " ('x', 'y'), as in the JAX package")
     if shape is not None:
         ndx, ndy = (int(v) for v in shape)
         if n_devices is not None and n_devices != ndx * ndy:

@@ -37,10 +37,19 @@ Engines:
   * TorchEngine ("torch"): the exact ring on the plain eager step.
   * CudaEngine ("cuda"): the exact ring on kernel A, the fast ring on
     kernel B.
+An engine's run_scan is the eager time loop, the counterpart of the JAX
+package's un-jitted run_scan and _run_sweep. On a CUDA device the "cuda"
+backend's Simulator runs that loop as one captured CUDA graph per span (the
+counterpart of the JAX package's jitted _run): the loop is captured once
+per (ring, nsteps, state buffers, source-table shape) and each later span
+on those buffers is one replay. The "torch" backend and CPU devices stay
+eager.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import time
@@ -50,7 +59,7 @@ import numpy as np
 import torch
 
 from .config import Grid3D, SimConfig
-from .ops import stencil_step, stencil_sweep, stencil_torch
+from .ops import _build, stencil_step, stencil_sweep, stencil_torch
 from .sources import (
     DeviceSourceTerm,
     build_source_term,
@@ -117,8 +126,14 @@ class _Engine:
     def extract_state(self, state):
         return tuple(x.float().cpu().numpy() for x in state)
 
-    def run_scan(self, state, src_table, nsteps: int):
-        return run_scan(state, src_table, engine=self, nsteps=nsteps)
+    @property
+    def m_args(self) -> tuple:
+        """The medium as the step takes it, the JAX package's m_args:
+        (m,), m a padded f32 tensor or a scalar."""
+        return (self.m,)
+
+    def run_scan(self, state, m_args, src_table, nsteps: int):
+        return run_scan(state, m_args, src_table, engine=self, nsteps=nsteps)
 
 
 class TorchEngine(_Engine):
@@ -128,8 +143,8 @@ class TorchEngine(_Engine):
         super().__init__(grid, cfg, m_ref, coords, device)
         self.m = self.field(self.m_ref)
 
-    def step(self, C, P, T):
-        return stencil_torch.leapfrog_step(C, P, self.m, T, grid=self.grid, dt=self.cfg.dt)
+    def step(self, C, P, T, m_args):
+        return stencil_torch.leapfrog_step(C, P, m_args[0], T, grid=self.grid, dt=self.cfg.dt)
 
 
 class CudaEngine(_Engine):
@@ -239,9 +254,12 @@ class CudaEngine(_Engine):
             return 0.0 if self.w is None else 1.0 / self.sweep_k
         return float(self.m is not None)
 
-    def step(self, C, P, T):
-        m = self.m if self.m is not None else self.m_val
-        return stencil_step.leapfrog_step(C, P, m, T, grid=self.grid, dt=self.cfg.dt)
+    @property
+    def m_args(self) -> tuple:
+        return (self.m if self.m is not None else self.m_val,)
+
+    def step(self, C, P, T, m_args):
+        return stencil_step.leapfrog_step(C, P, m_args[0], T, grid=self.grid, dt=self.cfg.dt)
 
     def prepare_state(self, u_prev, u_cur, u_target):
         if self.sweep_k and _rims_identical([u_prev, u_cur, u_target], self.grid.halo):
@@ -276,9 +294,12 @@ class CudaEngine(_Engine):
                 if kk - 1 - j >= 0:
                     U[(0,) + sl] += (s[kk - 1 - j, p] * cube).to(U.dtype)
 
-    def run_scan(self, state, src_table, nsteps: int):
+    def run_scan(self, state, m_args, src_table, nsteps: int):
+        """nsteps steps of the state's ring, eagerly; the fast ring's
+        medium is the engine's own (m_val or w), so m_args serves the exact
+        ring only."""
         if not isinstance(state, dict):
-            return super().run_scan(state, src_table, nsteps)
+            return super().run_scan(state, m_args, src_table, nsteps)
         U, spare = state["sweep"]
         have_src = src_table is not None and self.has_sources
         done = 0
@@ -304,16 +325,109 @@ def make_engine(grid: Grid3D, cfg: SimConfig, m_ref, coords=None, *, device):
 
 
 @torch.no_grad()
-def run_scan(state, src_table, *, engine, nsteps: int):
-    """nsteps exact-ring steps; returns the (u_{N-1}, u_N, u_{N-2}) levels."""
+def run_scan(state, m_args, src_table, *, engine, nsteps: int):
+    """nsteps exact-ring steps, eagerly; returns the (u_{N-1}, u_N, u_{N-2})
+    levels. m_args is the engine's medium (engine.m_args)."""
     P, C, T = state
     have_src = src_table is not None and engine.has_sources
     for t in range(nsteps):
-        un = engine.step(C, P, T)
+        un = engine.step(C, P, T, m_args)
         if have_src:
             inject(un, engine.dterm, src_table[t])
         P, C, T = C, un, P
     return (P, C, T)
+
+
+GRAPH_CACHE = 8  # captured spans a Simulator keeps; the least recently used goes first
+
+
+def _counters() -> tuple:
+    """The kernels' launch counters, in a fixed order."""
+    return (stencil_step.counts["kernel"], stencil_step.counts["plain"],
+            stencil_sweep.counts["kernel"], stencil_sweep.counts["plain"],
+            stencil_sweep.frozen_counts)
+
+
+@contextlib.contextmanager
+def _counts_kept():
+    """Launches counted inside the block are taken back on leaving it;
+    yields the counts as they were on entry, in `_counters()`'s order."""
+    saved = [collections.Counter(c) for c in _counters()]
+    try:
+        yield saved
+    finally:
+        for c, s in zip(_counters(), saved):
+            c.clear()
+            c.update(s)
+
+
+def _graph_nodes(graph) -> Tuple[int, int]:
+    """(nodes, kernel nodes) of a capture's recorded graph (kept with
+    keep_graph), read through the CUDA driver's cuGraphGetNodes and
+    cuGraphNodeGetType."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+
+    def check(rc):
+        if rc:
+            raise RuntimeError(f"reading a captured graph's nodes: CUDA driver error {rc}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value:
+        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return n.value, kernels
+
+
+def _buffers(state) -> tuple:
+    """Every tensor of a state, in order: (U, spare) or (P, C, T)."""
+    return tuple(state["sweep"]) if isinstance(state, dict) else tuple(state)
+
+
+def _state_of(like, buffers):
+    """A state of `like`'s ring over `buffers`."""
+    return {"sweep": tuple(buffers)} if isinstance(like, dict) else tuple(buffers)
+
+
+class _Graph:
+    """One span of the eager loop, captured as a CUDA graph.
+
+    The graph holds the addresses of the state buffers it was captured on,
+    the engine's constants (cubes, w, m, source indices) and its own source
+    table `src` ([nsteps, nsrc] f32 on the card, or None), which `load`
+    fills before a replay. `roles[i]` is the input buffer that holds level
+    i of the output state. `deltas` are the launches of one replay per
+    counter of `_counters()`: the wrappers count when they are called,
+    which is at capture, so a replay adds them. `nodes` and `kernels`
+    count the recorded graph's nodes and its kernel nodes."""
+
+    def __init__(self, graph, device, src, roles, deltas, nodes: int, kernels: int,
+                 seconds: float):
+        self.graph, self.device, self.src, self.roles = graph, device, src, roles
+        self.deltas, self.nodes, self.kernels = deltas, nodes, kernels
+        self.seconds = seconds  # the capture's wall time, instantiation included
+
+    def load(self, rows) -> None:
+        if self.src is not None:
+            self.src.copy_(torch.from_numpy(rows))
+
+    def launch(self, state):
+        with torch.cuda.device(self.device):  # replay() launches on the current device's stream
+            self.graph.replay()
+        for counter, delta in zip(_counters(), self.deltas):
+            counter.update(delta)
+        bufs = _buffers(state)
+        return _state_of(state, [bufs[r] for r in self.roles])
 
 
 class Simulator:
@@ -323,6 +437,15 @@ class Simulator:
     [n+2H]^3 (main.cpp:360-363); the engine owns the device state.
     `device` defaults to the card; a CUDA device that is not there raises,
     and device="cpu" runs the plain versions of the kernels.
+
+    On a CUDA device the "cuda" backend runs each span as a CUDA graph
+    (`graphs`, at most GRAPH_CACHE of them): the first span on a set of
+    state buffers captures the engine's loop, which records and runs
+    nothing, and every span replays it. Like the JAX package's donated
+    state, the state passed to run or run_timed is advanced in place: use
+    the state returned, and do not resize or re-stride its tensors between
+    runs (a graph writes to the addresses it was captured on). A capture
+    or replay that fails raises; nothing retries eagerly.
     """
 
     def __init__(self, grid: Grid3D, cfg: SimConfig, m: np.ndarray,
@@ -330,8 +453,14 @@ class Simulator:
         self.grid = grid
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.engine = make_engine(grid, cfg, m, src_coords, device=self.device)
         self.last_clock = None  # run_timed's clock: "cuda_event" or "host"
+        # key (ring, nsteps, source-table shape, buffers) -> _Graph; None: eager
+        self.graphs = (collections.OrderedDict()
+                       if self.device.type == "cuda" and cfg.backend == "cuda" else None)
+        self._capture_stream = None  # a side stream on self.device, made at the first capture
 
     def prepare_state(self, u_prev, u_cur, u_target=None):
         """Device state from host ICs; the third level defaults to a copy of
@@ -339,21 +468,35 @@ class Simulator:
         ut = u_cur if u_target is None else u_target
         return self.engine.prepare_state(np.asarray(u_prev), np.asarray(u_cur), np.asarray(ut))
 
+    def state_spec(self):
+        """The state prepare_state returns for standard ICs (identical rims),
+        as tensors on the "meta" device: {"sweep": (U, spare)} on the fast
+        ring, three levels on the exact ring. The JAX package's state_spec."""
+        shape = self.grid.padded_shape
+        dtype = self.engine.dtype
+
+        def leaf(*s):
+            return torch.empty(s, dtype=dtype, device="meta")
+
+        if getattr(self.engine, "sweep_k", 0):
+            return {"sweep": (leaf(2, *shape), leaf(2, *shape))}
+        return (leaf(*shape), leaf(*shape), leaf(*shape))
+
     def prepare_state_random(self, seed: int, scale: float = 0.1):
         """Random state made on the device, for timing runs (the kernels
-        are branch-free over field values). Fast-ring layout when the
-        engine has a fast ring, else three levels."""
+        are branch-free over field values), of state_spec's structure,
+        shapes and dtypes; the fast ring's spare is a copy of U."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        def rnd(*shape):
-            u = torch.randn(shape, generator=gen, device=self.device) * scale
-            return u.to(self.engine.dtype)
+        def rnd(like):
+            u = torch.randn(like.shape, generator=gen, device=self.device) * scale
+            return u.to(like.dtype)
 
-        shape = self.grid.padded_shape
-        if getattr(self.engine, "sweep_k", 0):
-            U = rnd(2, *shape)
+        spec = self.state_spec()
+        if isinstance(spec, dict):
+            U = rnd(spec["sweep"][0])
             return {"sweep": (U, U.clone())}
-        return (rnd(*shape), rnd(*shape), rnd(*shape))
+        return tuple(rnd(like) for like in spec)
 
     @staticmethod
     def _leaves(state):
@@ -372,33 +515,98 @@ class Simulator:
         exact ring, (u_{N-1}, u_N) on the fast ring."""
         return self.engine.extract_state(state)
 
-    def _src_slice(self, src, t0: int, t1: int):
+    def _src_rows(self, src, t0: int, t1: int):
+        """Rows t0..t1 of the source table as a contiguous f32 host array;
+        None without sources."""
         if src is None or not self.engine.has_sources:
             return None
-        return torch.as_tensor(np.asarray(src[t0:t1], np.float32), device=self.device)
+        return np.ascontiguousarray(np.asarray(src[t0:t1], np.float32))
+
+    def _capture(self, state, rows, n: int) -> _Graph:
+        """Record n steps of the engine's loop on `state`'s buffers, on a
+        side stream of this Simulator's card (torch.cuda.graph's shared
+        default stream lives on whichever card was current at its first
+        use); call under torch.cuda.device(self.device)."""
+        bufs = _buffers(state)
+        if any(b.device != self.device for b in bufs):
+            raise ValueError(f"a captured span needs every state buffer on {self.device}; got"
+                             f" {[str(b.device) for b in bufs]}")
+        _build.library()  # nvcc and the library's load stay outside the capture
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        src = None if rows is None else torch.empty(rows.shape, dtype=torch.float32,
+                                                    device=self.device)
+        # keep_graph: the recorded graph stays readable (raw_cuda_graph), to
+        # check its nodes against the launches counted at capture
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with _counts_kept() as before:  # the capture launched nothing
+            with torch.no_grad(), torch.cuda.graph(graph, stream=self._capture_stream):
+                out = self.engine.run_scan(state, self.engine.m_args, src, n)
+            deltas = [c - b for c, b in zip(_counters(), before)]
+        nodes, kernels = _graph_nodes(graph)
+        launched = sum(deltas[0].values()) + sum(deltas[2].values())
+        plain = sum(deltas[1].values()) + sum(deltas[3].values())
+        if not nodes or kernels < launched or plain:
+            raise RuntimeError(
+                f"the captured span recorded {nodes} nodes, {kernels} of them kernels, for"
+                f" {launched} kernel launches and {plain} plain steps counted at capture")
+        graph.instantiate()
+        ptrs = [b.data_ptr() for b in bufs]
+        outs = [b.data_ptr() for b in _buffers(out)]
+        if any(p not in ptrs for p in outs):
+            raise RuntimeError("the captured span returned a buffer that is not the state's")
+        return _Graph(graph, self.device, src, tuple(ptrs.index(p) for p in outs), deltas,
+                      nodes, kernels, time.perf_counter() - t0)
+
+    def _graph(self, state, rows, n: int) -> _Graph:
+        """The span's graph, captured on first use of these buffers."""
+        key = (isinstance(state, dict), n, None if rows is None else rows.shape,
+               tuple((b.data_ptr(), str(b.device), b.dtype, tuple(b.shape), b.stride())
+                     for b in _buffers(state)))
+        graph = self.graphs.pop(key, None)
+        if graph is None:
+            graph = self._capture(state, rows, n)
+        self.graphs[key] = graph
+        while len(self.graphs) > GRAPH_CACHE:
+            self.graphs.popitem(last=False)
+        return graph
+
+    def _span(self, state, rows, n: int):
+        """A callable that advances `state` by n steps, source row t (of
+        `rows`, None without sources) feeding step t, and returns the new
+        state. Everything but the run happens here: the source rows' copy to
+        the device and, on the card, the capture."""
+        if n == 0:
+            return lambda: state
+        if self.graphs is None:
+            table = None if rows is None else torch.as_tensor(rows, device=self.device)
+            return lambda: self.engine.run_scan(state, self.engine.m_args, table, n)
+        with torch.cuda.device(self.device):
+            graph = self._graph(state, rows, n)
+            graph.load(rows)
+        return lambda: graph.launch(state)
 
     def run(self, state, src: Optional[np.ndarray] = None, nsteps: Optional[int] = None):
         """Advance the state by nsteps (default cfg.nsteps); src row t feeds
         step t of this span."""
         n = self.cfg.nsteps if nsteps is None else nsteps
-        if n == 0:
-            return state
-        return self.engine.run_scan(state, self._src_slice(src, 0, n), n)
+        return self._span(state, self._src_rows(src, 0, n), n)()
 
     @staticmethod
     def _copy(state):
         """A copy of a state on the device, for a timing run that must not
         advance the physics."""
-        if isinstance(state, dict):
-            return {"sweep": tuple(x.clone() for x in state["sweep"])}
-        return tuple(x.clone() for x in state)
+        return _state_of(state, [x.clone() for x in _buffers(state)])
 
     def run_timed(self, state, src: Optional[np.ndarray] = None, timing_repeat: int = 1):
         """The reference timing convention: cfg.warmup_steps untimed steps,
         then the rest timed (cuda.cu:232). Returns (state, seconds), as the
         JAX package's run_timed does; `last_clock` names the clock of the
         last call: "cuda_event" on a CUDA device (events around the timed
-        span), else "host" (wall time, no device time).
+        span, which holds the span's run alone: its graph is captured and
+        its source rows copied before the first event), else "host" (wall
+        time, no device time).
 
         timing_repeat = q > 1 times q * rest steps on a throwaway copy of
         the state, the source rows tiled, and returns that time / q; the
@@ -407,27 +615,29 @@ class Simulator:
         w = min(self.cfg.warmup_steps, self.cfg.nsteps)
         rest = self.cfg.nsteps - w
         q = max(1, int(timing_repeat))
-        state = self.engine.run_scan(state, self._src_slice(src, 0, w), w)
-        main_src = self._src_slice(src, w, self.cfg.nsteps)
+        state = self._span(state, self._src_rows(src, 0, w), w)()
+        main_rows = self._src_rows(src, w, self.cfg.nsteps)
         timed = self._copy(state) if q > 1 else state
-        timed_src = main_src if main_src is None or q == 1 else main_src.repeat(q, 1)
+        timed_rows = main_rows if main_rows is None or q == 1 else np.tile(main_rows, (q, 1))
+        go = self._span(timed, timed_rows, rest * q)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            stream = torch.cuda.current_stream(self.device)  # the stream the span runs on
             torch.cuda.synchronize(self.device)
-            start.record()
-            timed = self.engine.run_scan(timed, timed_src, rest * q)
-            end.record()
+            start.record(stream)
+            timed = go()
+            end.record(stream)
             torch.cuda.synchronize(self.device)
             secs, self.last_clock = start.elapsed_time(end) / 1e3, "cuda_event"
         else:
             t0 = time.perf_counter()
-            timed = self.engine.run_scan(timed, timed_src, rest * q)
+            timed = go()
             secs, self.last_clock = time.perf_counter() - t0, "host"
         if q == 1:
             return timed, secs
         del timed
-        return self.engine.run_scan(state, main_src, rest), secs / q
+        return self._span(state, main_rows, rest)(), secs / q
 
 
 def simulate_ring(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
@@ -448,12 +658,17 @@ def simulate(u_prev, u_cur, m, grid: Grid3D, cfg: SimConfig, src=None,
     return P, C
 
 
-def get_step_fn(grid: Grid3D, dt: float, backend: str):
+def get_step_fn(grid: Grid3D, dt: float, backend: str, layout=None):
     """step(u_cur, u_prev, m, target) -> target with u_{n+1} in its
     interior, for tensors of the padded shape and m a padded f32 tensor or
     a scalar: kernel A on "cuda" (its plain version for CPU tensors), the
     eager step on "torch". The counterpart of the JAX package's
-    get_step_fn (its "pallas" and "jnp")."""
+    get_step_fn (its "pallas" and "jnp"). `layout` is None or the
+    reference layout of `grid` (Layout.reference), the port's only one."""
+    if layout is not None and not (getattr(layout, "is_reference", False)
+                                   and tuple(layout.padded_shape) == tuple(grid.padded_shape)):
+        raise ValueError(f"layout {layout!r}: the port has only the reference layout"
+                         " (Layout.reference(grid), or None)")
     if backend == "cuda":
         return functools.partial(stencil_step.leapfrog_step, grid=grid, dt=dt)
     if backend == "torch":
