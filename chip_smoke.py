@@ -60,7 +60,8 @@ exits non-zero without a result line:
      source straddles shards 0 | 1), over 2 x 2 shards, on the layered
      medium (w) and in bf16, and the per-step engine at order 8 on kernel A;
      each against the single-device run of its path from phases 6, 7, 9 and
-     10 and that run's f64 truth, with launches and ms/step;
+     10 and that run's f64 truth, with launches and ms/step through the
+     ShardedSimulator's captured graphs and through its eager loop;
   13. the reference ABI, compat.kernel_cuda, at 512^3 x 50, order 4, one
      source (kernel A): every exit slot bitwise simulate_ring and within
      the gate of the f64 truth, the Profiler's sections;
@@ -73,23 +74,25 @@ exits non-zero without a result line:
   16. the sharded sweep's exchange/compute overlap: x4 order 4 at 512^3 x 50
      with overlap "on" bitwise "off" in f32 with the source, in the w mode
      and in bf16, both timed;
-  17. tracing.trace of 10 main-path steps, one replay of a captured graph:
-     the device's busy share, and the profiler's kernel-B intervals, which
-     must equal the launches counted;
+  17. tracing.trace of 10 main-path steps, one replay of a captured graph,
+     and of 10 steps of the sharded x4 order-4 sweep, one replay: the
+     device's busy share, and the profiler's kernel-B intervals, which must
+     equal the launches counted;
   18. the bench line of tpufdtd_torch/harness/bench.py;
   19. the Simulator's captured graphs against the engine's eager loop
      (engine.run_scan) on copies of one state, bitwise, at 512^3 x 50: order
      4, order 6 (the deep form), order 12 (the exact ring on kernel A), order
      4 layered in bf16 (bf16 + w), order 4 at t_fuse 5; and two replays with
      two source tables on the same buffers; each graph's capture seconds,
-     node and kernel-node counts and launches a replay; a failed capture
-     raises and runs nothing;
+     node and kernel-node counts and launches a replay, and those of phase
+     12's sharded graphs; a failed capture raises and runs nothing;
   20. the ladder 128^3-1024^3 at order 4: ms/step through the graphs and
      through the eager loop.
-On the card the Simulator runs each span as a captured CUDA graph: every
-single-device run of phases 5-10b, 13 and 14 is also held bitwise to the
-engine's eager loop over the same spans on a copy of its state (launches
-of these eager runs are not counted).
+On the card the Simulator and the ShardedSimulator (shards on one card)
+run each span as a captured CUDA graph: every single-device run of phases
+5-10b, 13 and 14 and every sharded run of phases 12, 15 and 16 is also
+held bitwise to the eager loop over the same spans on a copy of its state
+(launches of these eager runs are not counted).
 Then the JSON line of the kernels (one entry per TPU kernel replaced), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Exits 1
 without a CUDA device.
@@ -571,18 +574,28 @@ def eager_run(sim, state, src, spans):
     """`state` advanced through the engine's eager loop (the loop the
     Simulator captures) in spans of the given step counts, source row t
     feeding step t; its launches are not counted."""
+    from tpufdtd_torch.graphs import counts_kept
     from tpufdtd_torch.harness import span_times
-    from tpufdtd_torch.stepper import _counts_kept
 
-    with _counts_kept():
+    with counts_kept():
         return span_times.eager_run(sim, state, src, spans)
+
+
+def sharded_eager_run(sim, state, m_sh, terms, src, spans):
+    """The sharded counterpart of eager_run: `state` advanced through the
+    ShardedSimulator's eager loop (the loop its graphs record), uncounted."""
+    from tpufdtd_torch.graphs import counts_kept
+    from tpufdtd_torch.harness import perf_sharded
+
+    with counts_kept():
+        return perf_sharded.eager_run(sim, state, m_sh, terms, src, spans)
 
 
 def same_state(a, b) -> bool:
     """Bitwise equality of two states, level by level."""
     import torch
 
-    from tpufdtd_torch.stepper import _buffers as buffers
+    from tpufdtd_torch.graphs import buffers
 
     torch.cuda.synchronize()
     return isinstance(a, dict) == isinstance(b, dict) and all(
@@ -590,8 +603,9 @@ def same_state(a, b) -> bool:
 
 
 def check_graphed(label, sim, state, twin):
-    """A run of the Simulator went through its captured graphs and is bitwise
-    `twin`, the eager loop over the same spans on a copy of its state."""
+    """A run of the Simulator (or ShardedSimulator) went through its captured
+    graphs and is bitwise `twin`, the eager loop over the same spans on a
+    copy of its state."""
     if not sim.graphs:
         raise AssertionError(f"{label}: the Simulator captured no graph on the card")
     same = same_state(state, twin)
@@ -938,6 +952,7 @@ SHARD_TOL_BF16 = BF16_TOL
 SHARD_TOL_BF16_F32 = 1e-2
 BF16_BITWISE_STEPS = 10
 SHARDED_U = {}  # u_N of the f32 sharded run the bf16 run is held to
+SHARDED_GRAPHS = {}  # phase 12's sharded paths: their graphs' lines, printed in phase 19
 SHARDED_PATHS = {
     "sharded x4 order 4": (4, None, False, "float32", "order 4", [r"B R=2 K=\d float32 m"],
                            [r"B R=2 K=2 float32 m"], SHARD_TOL_F32),
@@ -1026,10 +1041,12 @@ def phase_sharded(tt, dev, smi, name, order, shape, layered, storage, single, al
     ShardedSimulator: launches (kernel B with margins counted apart), u_N
     against the single-device run of the same path (phases 6, 7, 9, 10)
     and its f64 truth (in bf16 also against the f32 sharded run, and
-    without sources bitwise against the single-device sweep), and ms/step
-    over the 45 steps after the warmup,
-    median of three spans, beside the single-device run's. Returns the
-    launches per mode."""
+    without sources bitwise against the single-device sweep), the graph's
+    run bitwise the eager loop over the same spans, and ms/step over the
+    45 steps after the warmup, median of three spans, through the graphs
+    and through the eager loop, beside the single-device run's. Returns
+    the launches per mode."""
+    from tpufdtd_torch import graphs
     from tpufdtd_torch.harness import media
     from tpufdtd_torch.harness.perf_sharded import NO_SCALING, timed_span
     from tpufdtd_torch.ops import stencil_sweep as B
@@ -1049,10 +1066,14 @@ def phase_sharded(tt, dev, smi, name, order, shape, layered, storage, single, al
     owners = sorted({(int(x) - grid.halo) // (n // mesh.ndx) for x in term.ix[live]})
     state, m_sh, terms = sim.prepare(u0, u0, m)
     engine = f"sweep K={sim.sweep.K}" if isinstance(state, dict) else "per-step (kernel A)"
+    twin = graphs.copy_state(state)
     reset_counts()
     state = sim.run(state, m_sh, terms, src[:warm], warm)
-    secs, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:], nsteps - warm))
+    secs, state = timed_span(sim, sim._span(state, m_sh, terms, src[warm:], nsteps - warm))
     modes = launches_by_mode()
+    check_graphed(name, sim, state,
+                  sharded_eager_run(sim, twin, m_sh, terms, src, (warm, nsteps - warm)))
+    del twin
     frozen = B.launches("frozen")
     print(f"  {name} ({mesh.ndx}x{mesh.ndy} shards, {engine}): source corners in x shards"
           f" {owners}; launches {modes}, of them kernel B with frozen margins {frozen}")
@@ -1090,13 +1111,20 @@ def phase_sharded(tt, dev, smi, name, order, shape, layered, storage, single, al
             raise AssertionError(f"{name}: rel-L2 {l2_f32} vs the f32 sharded run")
         bitwise_without_sources(tt, dev, grid, cfg, m, mesh, name)
     del c
-    times = [secs]
+    times, eager = [secs], []
     for _ in range(2):
-        t, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:], nsteps - warm))
+        t, state = timed_span(sim, sim._span(state, m_sh, terms, src[warm:], nsteps - warm))
         times.append(t)
-    ms = float(np.median(times)) / (nsteps - warm) * 1e3
-    print(f"  {name}: {ms:.4f} ms/step, the single-device run {want['ms']:.4f} ms/step"
-          f" ({NO_SCALING}) [{smi}]; spans (s) {times}")
+    with graphs.counts_kept():
+        for _ in range(3):
+            t, state = timed_span(sim, sim._eager_span(state, m_sh, terms, src[warm:],
+                                                       nsteps - warm))
+            eager.append(t)
+    ms, ms_eager = (float(np.median(v)) / (nsteps - warm) * 1e3 for v in (times, eager))
+    print(f"  {name}: graph {ms:.4f} ms/step, eager {ms_eager:.4f} ms/step ({ms / ms_eager:.3f}"
+          f" of it), the single-device run {want['ms']:.4f} ms/step ({NO_SCALING}) [{smi}];"
+          f" spans (s) graph {times}, eager {eager}")
+    SHARDED_GRAPHS[name] = graph_lines(sim)
     sharded_breakdown(sim, state, m_sh, terms, src, name)
     return modes
 
@@ -1314,6 +1342,7 @@ def phase_sharded_checkpoint(tt, dev):
     device, against the unbroken x4 run: bitwise without sources, within
     SOURCED_RESUME_TOL with the source. Returns the launches per mode."""
     from tpufdtd_torch import checkpoint as ck
+    from tpufdtd_torch import graphs
     from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
 
     nsteps = 50
@@ -1329,20 +1358,40 @@ def phase_sharded_checkpoint(tt, dev):
         st, ms, pk = sim.prepare(up, uc, m)
         if not isinstance(st, dict):
             raise AssertionError("sharded checkpoint: not the sharded sweep")
-        p0, c0 = sim.extract_state(sim.run(st, ms, pk, s_tab, nsteps))
+        twin = graphs.copy_state(st)
+        st = sim.run(st, ms, pk, s_tab, nsteps)
+        check_graphed("sharded checkpoint's unbroken x4 run", sim, st,
+                      sharded_eager_run(sim, twin, ms, pk, s_tab, [nsteps]))
+        del twin
+        p0, c0 = sim.extract_state(st)
         with tempfile.TemporaryDirectory() as tmp:
             fmt = tmp + "/ck_{step:06d}.npz"
-            pa, ca = ck.run_sharded_with_checkpoints(ShardedSimulator(grid, cfg, m, x4, c_xy), up,
-                                                     uc, m, nsteps, s_tab,
+            sim_ck = ShardedSimulator(grid, cfg, m, x4, c_xy)
+            pa, ca = ck.run_sharded_with_checkpoints(sim_ck, up, uc, m, nsteps, s_tab,
                                                      checkpoint_every=SHARDED_CKPT_STEP,
                                                      path_fmt=fmt)
+            if len(sim_ck.graphs) != 2:  # spans of 30 and 20 steps
+                raise AssertionError(f"sharded checkpoint: {len(sim_ck.graphs)} graphs")
             path = fmt.format(step=SHARDED_CKPT_STEP)
+            mesh22 = make_mesh(shape=(2, 2), devices=[dev] * 4)
             runs = {"x4 checkpointed": (pa, ca),
-                    "2x2 resumed": ck.resume_sharded(path, cfg, m, make_mesh(shape=(2, 2),
-                                                                             devices=[dev] * 4),
-                                                     nsteps, s_tab, c_xy),
+                    "2x2 resumed": ck.resume_sharded(path, cfg, m, mesh22, nsteps, s_tab, c_xy),
                     "single device resumed": ck.resume(path, cfg, m, nsteps, s_tab, c_xy,
                                                        device=dev)}
+            # resume_sharded's run (through its graphs) against the eager loop
+            ckpt = ck.load(path)
+            sim22 = ShardedSimulator(ckpt.grid, cfg, m, mesh22, c_xy)
+            st22, ms22, pk22 = sim22.prepare(ckpt.u_prev, ckpt.u_cur, m, ckpt.u_target)
+            rest = nsteps - ckpt.step
+            eager22 = sim22.extract_state(sharded_eager_run(
+                sim22, st22, ms22, pk22, None if s_tab is None else s_tab[ckpt.step:], [rest]))
+            same22 = all(np.array_equal(a, b) for a, b in zip(eager22, runs["2x2 resumed"]))
+            print(f"  2x2 resumed ({'one source' if sourced else 'no sources'}): bitwise the"
+                  f" eager loop from the checkpoint: {same22}")
+            if not same22:
+                raise AssertionError("sharded checkpoint: the 2x2 resume differs from the eager"
+                                     " loop")
+            del sim22, st22
         for name, (p, c) in runs.items():
             same = np.array_equal(c, c0) and np.array_equal(p, p0)
             l2 = max(rel_l2(c, c0), rel_l2(p, p0))
@@ -1369,6 +1418,7 @@ def phase_overlap(tt, dev, smi, name, layered, storage, pattern):
     "off": u_N-1 and u_N bitwise, and both ms/step (45 timed steps after 5
     warmup, median of 3 spans). Returns the launches per mode of the "on"
     run."""
+    from tpufdtd_torch import graphs
     from tpufdtd_torch.harness import media
     from tpufdtd_torch.harness.perf_sharded import timed_span
     from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
@@ -1384,17 +1434,19 @@ def phase_overlap(tt, dev, smi, name, layered, storage, pattern):
         if sim.sweep is None or sim.sweep.overlap != (overlap == "on"):
             raise AssertionError(f"overlap {name}: {overlap} did not select its schedule")
         state, m_sh, terms = sim.prepare(u0, u0, m)
+        twin = graphs.copy_state(state)
         reset_counts()
         state = sim.run(state, m_sh, terms, src[:warm], warm)
-        secs, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:],
-                                                      nsteps - warm))
+        secs, state = timed_span(sim, sim._span(state, m_sh, terms, src[warm:], nsteps - warm))
         modes = launches_by_mode()
         check_launches(f"overlap {name} {overlap}", modes, [pattern], [pattern])
+        check_graphed(f"overlap {name} {overlap}", sim, state,
+                      sharded_eager_run(sim, twin, m_sh, terms, src, (warm, nsteps - warm)))
+        del twin
         levels = sim.extract_state(state)
         times = [secs]
         for _ in range(2):
-            t, state = timed_span(sim, lambda: sim.run(state, m_sh, terms, src[warm:],
-                                                       nsteps - warm))
+            t, state = timed_span(sim, sim._span(state, m_sh, terms, src[warm:], nsteps - warm))
             times.append(t)
         out[overlap] = (levels, float(np.median(times)) / (nsteps - warm) * 1e3, modes)
         if overlap == "on" and not layered and storage == "float32":
@@ -1517,6 +1569,60 @@ def phase_trace(tt, dev, smi):
     return modes
 
 
+def trace_sharded(tt, dev, smi):
+    """Phase 17's sharded window: one replay of TRACE_STEPS steps of the x4
+    order-4 sharded sweep (512^3, four shards on the card) under
+    tracing.trace, its graphs captured before it (two windows, for both
+    roles): the device's busy share of the window, beside the same steps
+    just before it without the profiler (CUDA events); the profiler's
+    kernel-B intervals must equal the counted launches."""
+    import torch
+
+    from tpufdtd_torch.harness.perf_sharded import timed_span
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+    from tpufdtd_torch.utils import tracing
+
+    n0 = 6
+    windows = [n0 + i * TRACE_STEPS for i in range(5)]  # two captures, timed, traced
+    grid, m, src, coords, u0 = main_config(tt, nsteps=windows[-1])
+    sim = ShardedSimulator(grid, tt.SimConfig(dt=0.001, nsteps=windows[-1]), m,
+                           make_mesh(devices=[dev] * 4), coords)
+    state, m_sh, terms = sim.prepare(u0, u0, m)
+    state = sim.run(state, m_sh, terms, src[:n0], n0)
+    for a, b in zip(windows[:2], windows[1:3]):
+        state = sim.run(state, m_sh, terms, src[a:b], TRACE_STEPS)
+    captured = len(sim.graphs)
+    plain_s, state = timed_span(sim, sim._span(state, m_sh, terms, src[windows[2]:windows[3]],
+                                               TRACE_STEPS))
+    go = sim._span(state, m_sh, terms, src[windows[3]:], TRACE_STEPS)
+    reset_counts()
+    with tempfile.TemporaryDirectory() as logdir:
+        with tracing.trace(logdir) as prof:
+            t0 = time.perf_counter()
+            state = go()
+            tracing.sync(state)
+            span_us = (time.perf_counter() - t0) * 1e6
+    if len(sim.graphs) != captured:
+        raise AssertionError(f"sharded trace: a capture inside a timed window ({captured}"
+                             f" graphs before, {len(sim.graphs)} after)")
+    modes = launches_by_mode()
+    busy = tracing.device_busy_us(prof)
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced_b = sum(1 for e in device_events if "sweep" in e.name and "frozen" not in e.name)
+    counted_b = sum(modes.values())
+    print(f"  trace of {TRACE_STEPS} steps of the sharded x4 order-4 sweep ({MAIN_N}^3, four"
+          f" shards on the card, K={sim.sweep.K}, one graph replay): device busy"
+          f" {busy / 1e3:.3f} ms of a {span_us / 1e3:.3f} ms window, busy share"
+          f" {busy / span_us:.4f}, idle share {1 - busy / span_us:.4f}; the same"
+          f" {TRACE_STEPS} steps before it without the profiler {plain_s * 1e3:.3f} ms (CUDA"
+          f" events), the traced busy time's share of that {busy / 1e3 / (plain_s * 1e3):.4f};"
+          f" {len(device_events)} device intervals, {traced_b} of kernel B against {counted_b}"
+          f" launches counted {modes} [{smi}]")
+    if traced_b != counted_b or not busy > 0:
+        raise AssertionError(f"sharded trace: {traced_b} kernel-B intervals, {counted_b} launches"
+                             f" counted, busy {busy} us")
+
+
 # Phase 19: each path through its Simulator's graph and through the eager
 # loop on copies of one random state, 512^3 x 50 with the Ricker source:
 # name -> (order, layered, storage, t_fuse)
@@ -1529,14 +1635,27 @@ GRAPH_PATHS = {
 }
 
 
-def print_graphs(label, sim):
+def graph_lines(sim) -> list:
+    """One line per graph of a Simulator or ShardedSimulator: its engine,
+    steps and source table, capture seconds, nodes, kernel nodes and
+    launches a replay (kernel B's frozen-margin launches apart)."""
+    out = []
+    names = {True: "the fast ring", False: "the exact ring", "sweep": "the sharded sweep",
+             "per-step": "the sharded per-step engine"}
     for key, g in sim.graphs.items():
-        ring, n, rows = key[0], key[1], key[2]
-        deltas = {k: v for d in g.deltas for k, v in d.items()}
-        print(f"  {label}: graph of {n} steps on the {'fast' if ring else 'exact'} ring,"
-              f" sources {rows}: capture {g.seconds:.3f} s, {g.nodes} nodes ({g.kernels}"
-              f" kernels),"
-              f" launches a replay {deltas}")
+        kind, n, rows = key[0], key[1], key[2]
+        deltas = {k: v for d in g.deltas[:4] for k, v in d.items()}
+        frozen = sum(g.deltas[4].values())
+        out.append(f"graph of {n} steps on {names[kind]}, sources {rows}: capture"
+                   f" {g.seconds:.3f} s, {g.nodes} nodes ({g.kernels} kernels), launches a"
+                   f" replay {deltas}" + (f", of them with frozen margins {frozen}"
+                                          if frozen else ""))
+    return out
+
+
+def print_graphs(label, sim):
+    for line in graph_lines(sim):
+        print(f"  {label}: {line}")
 
 
 def phase_graphs(tt, dev):
@@ -1545,11 +1664,11 @@ def phase_graphs(tt, dev):
     the eager loop with its own table, from one capture; then a capture
     that fails raises, with no launch, write or graph left. Prints each
     graph's capture seconds, node and kernel-node counts and launches a
-    replay."""
+    replay, and those of phase 12's sharded paths."""
     import torch
 
     from tpufdtd_torch.harness import span_times
-    from tpufdtd_torch.stepper import _buffers as buffers
+    from tpufdtd_torch.graphs import buffers
 
     nsteps = 50
     for name, (order, layered, storage, t_fuse) in GRAPH_PATHS.items():
@@ -1589,6 +1708,9 @@ def phase_graphs(tt, dev):
     if launches_by_mode() != before or not torch.equal(U, untouched) or len(sim.graphs) != 1:
         raise AssertionError("the failed capture launched, wrote or kept something")
     print(f"  a failed capture raises and runs nothing eagerly: {failed}")
+    for name, lines in SHARDED_GRAPHS.items():  # phase 12's sharded paths
+        for line in lines:
+            print(f"  {name}: {line}")
 
 
 LADDER = (128, 256, 512, 1024)  # phase 20
@@ -1713,8 +1835,9 @@ def run_phases(tt, dev, smi):
     print(f"[16 sharded sweep overlap on against off {MAIN_N}^3 x 50, four shards on the card]")
     for name, spec in OVERLAP_PATHS.items():
         paths[f"overlap {name}"] = phase_overlap(tt, dev, smi, name, *spec)
-    print(f"[17 trace of {TRACE_STEPS} main-path steps]")
+    print(f"[17 trace of {TRACE_STEPS} main-path steps; one sharded x4 replay]")
     paths["trace"] = phase_trace(tt, dev, smi)
+    trace_sharded(tt, dev, smi)
     print("[18 bench]")
     paths["bench"] = phase_bench(tt, dev)
     print(f"[19 captured graphs against the eager loop {MAIN_N}^3 x 50]")

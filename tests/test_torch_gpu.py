@@ -13,16 +13,20 @@ once at the end, and may round one element to neighbouring bf16 values:
 the bound adds one bf16 ulp of the element (2^-8 to 2^-7 of its value).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import tpufdtd_torch as tt
+from tpufdtd_torch import graphs
 from tpufdtd_torch.harness import media
 from tpufdtd_torch.harness.span_times import eager_run
 from tpufdtd_torch.ops import stencil_step as A
 from tpufdtd_torch.ops import stencil_sweep as B
-from tpufdtd_torch.stepper import GRAPH_CACHE, Simulator, _buffers, _state_of
+from tpufdtd_torch.graphs import GRAPH_CACHE, buffers as _buffers
+from tpufdtd_torch.stepper import Simulator
 
 pytestmark = pytest.mark.gpu
 RTOL = 1e-5
@@ -771,7 +775,7 @@ def test_overlap_interior_slab_does_not_wait_on_the_exchange(dev, monkeypatch):
             monkey(sim.sweep)
         st, ms, pk = sim.prepare(up, uc, m)
         torch.cuda.synchronize()
-        st = sim.run(st, ms, pk, None, 2)  # one overlapped block
+        st = sim._eager_span(st, ms, pk, None, 2)()  # one overlapped block, eagerly
         if overlap == "on":
             marks["mid"].synchronize()
             assert not marks["x"].query(), "the interior slabs waited on the x exchange"
@@ -903,7 +907,8 @@ def test_failed_capture_raises_and_runs_nothing(dev, bad):
         bufs[1] = bufs[1].to(torch.bfloat16)
     else:
         bufs[-1] = bufs[-1].cpu()
-    state = _state_of(state, bufs)
+    it = iter(bufs)
+    state = graphs.state_of(state, lambda _: next(it))
     before = [b.clone() for b in bufs]
     A.reset_counts()
     B.reset_counts()
@@ -920,8 +925,6 @@ def test_capture_records_on_the_simulators_card(dev, monkeypatch):
     torch.cuda.graph's shared default stream, made on whichever card was
     current first), and its recorded graph holds a kernel node at least for
     every launch counted; device="cuda" names the current card."""
-    from tpufdtd_torch import stepper
-
     streams, real = [], torch.cuda.graph
 
     def spy(graph, **kw):
@@ -935,7 +938,7 @@ def test_capture_records_on_the_simulators_card(dev, monkeypatch):
     (g,) = sim.graphs.values()
     launched = sum(g.deltas[0].values()) + sum(g.deltas[2].values())
     assert g.nodes >= g.kernels >= launched > 0
-    assert stepper._graph_nodes(g.graph) == (g.nodes, g.kernels)
+    assert graphs.graph_nodes(g.graph) == (g.nodes, g.kernels)
     g1 = tt.Grid3D(16, 16, 16)
     plain = tt.Simulator(g1, tt.SimConfig(), np.full(g1.padded_shape, 1.5, np.float32),
                          device="cuda")
@@ -946,11 +949,9 @@ def test_capture_with_fewer_kernels_than_counted_raises(dev, monkeypatch):
     """A recorded graph that holds fewer kernel nodes than the wrappers
     counted at capture (its launches went elsewhere) raises, keeps no graph
     and counts nothing."""
-    from tpufdtd_torch import stepper
-
     sim, state = _graph_sim(dev)
     before = Simulator._copy(state)
-    monkeypatch.setattr(stepper, "_graph_nodes", lambda graph: (0, 0))
+    monkeypatch.setattr(graphs, "graph_nodes", lambda graph: (0, 0))
     A.reset_counts()
     B.reset_counts()
     with pytest.raises(RuntimeError, match="recorded 0 nodes"):
@@ -981,6 +982,166 @@ def test_graph_on_a_card_that_is_not_current(case):
     assert secs > 0 and _bitwise(timed, plain)
     assert torch.cuda.current_device() == 0
     assert all(g.nodes > 0 for g in sim.graphs.values())
+
+
+# The ShardedSimulator's captured spans (parallel/sharded.py): four shards on
+# one card replay one graph per span, bitwise the eager loop (_enqueue) on a
+# copy of the state with the same source rows; 7 steps end the K = 2 sweep on
+# a short block, 50 are the main path's span.
+SHARDED_GRAPH_N = 64
+SHARDED_GRAPH_CASES = {  # name -> (order, mesh shape, layered, storage, overlap)
+    "x4_order4": (4, None, False, "float32", "auto"),
+    "2x2_order4": (4, (2, 2), False, "float32", "auto"),
+    "x4_order4_layered": (4, None, True, "float32", "auto"),
+    "x4_order4_bf16": (4, None, False, "bfloat16", "auto"),
+    "x4_order4_overlap_on": (4, None, False, "float32", "on"),
+    "x4_order8_per_step": (8, None, False, "float32", "auto"),
+}
+
+
+def _sharded_sim(devices, order=4, shape=None, layered=False, storage="float32",
+                 overlap="auto"):
+    from tpufdtd_torch.parallel import ShardedSimulator, make_mesh
+
+    n = SHARDED_GRAPH_N
+    g = tt.Grid3D(n, n, n, order=order)
+    m = media.layered(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    cfg = tt.SimConfig(dt=0.001, storage_dtype=storage, overlap=overlap)
+    sim = ShardedSimulator(g, cfg, m, make_mesh(shape=shape, devices=devices),
+                           tt.default_source_coords(1, n, n, n))
+    state, m_sh, terms = sim.prepare(*_zero_rim_pair(g, order), m)
+    assert isinstance(state, dict) == (order <= 4)
+    assert order <= 4 or terms is not None
+    return sim, state, m_sh, terms
+
+
+def _sharded_eager(sim, state, m_sh, terms, src, spans):
+    from tpufdtd_torch.harness.perf_sharded import eager_run
+
+    with graphs.counts_kept():
+        return eager_run(sim, state, m_sh, terms, src, spans)
+
+
+@pytest.mark.parametrize("nsteps", [7, 50])
+@pytest.mark.parametrize("case", list(SHARDED_GRAPH_CASES))
+def test_sharded_graph_replay_is_bitwise_eager(dev, case, nsteps):
+    sim, state, m_sh, terms = _sharded_sim([dev] * 4, *SHARDED_GRAPH_CASES[case])
+    assert sim.graphs is not None and sim.graphs.device == dev
+    if "overlap" in case:
+        assert sim.sweep.overlap
+    src = tt.ricker_table(nsteps, 1, 0.001)
+    twin = graphs.copy_state(state)
+    ptrs = {b.data_ptr() for b in _buffers(state)}
+    for _ in range(2):  # the second span starts from the roles the first returned
+        state = sim.run(state, m_sh, terms, src, nsteps)
+        twin = _sharded_eager(sim, twin, m_sh, terms, src, [nsteps])
+        assert _bitwise(state, twin)
+        assert {b.data_ptr() for b in _buffers(state)} == ptrs  # advanced in place
+    assert 1 <= len(sim.graphs) <= 2
+    for g in sim.graphs.values():
+        launched = sum(g.deltas[0].values()) + sum(g.deltas[2].values())
+        assert g.nodes >= g.kernels >= launched > 0
+
+
+def test_sharded_graph_takes_each_source_table_on_the_same_buffers(dev):
+    for case in ("x4_order4", "x4_order8_per_step"):
+        sim, state, m_sh, terms = _sharded_sim([dev] * 4, *SHARDED_GRAPH_CASES[case])
+        start = graphs.copy_state(state)
+        tables = [tt.ricker_table(7, 1, 0.001), -3.0 * tt.ricker_table(7, 1, 0.002)]
+        outs = []
+        for src in tables:
+            for b, v in zip(_buffers(state), _buffers(start)):
+                b.copy_(v)
+            out = sim.run(state, m_sh, terms, src, 7)
+            assert _bitwise(out, _sharded_eager(sim, graphs.copy_state(start), m_sh, terms, src,
+                                                [7]))
+            outs.append(graphs.copy_state(out))
+        assert len(sim.graphs) == 1 and not _bitwise(outs[0], outs[1]), case
+
+
+@pytest.mark.parametrize("case", ["x4_order4", "2x2_order4", "x4_order4_overlap_on",
+                                  "x4_order8_per_step"])
+def test_sharded_graph_replays_count_their_launches(dev, case):
+    """Per replay the launches the eager loop counts, kernel B's
+    frozen-margin launches included; a capture counts none."""
+    sim, state, m_sh, terms = _sharded_sim([dev] * 4, *SHARDED_GRAPH_CASES[case])
+    src = tt.ricker_table(12, 1, 0.001)  # 12 steps return every buffer to its role
+    A.reset_counts()
+    B.reset_counts()
+    from tpufdtd_torch.harness.perf_sharded import eager_run
+
+    eager_run(sim, graphs.copy_state(state), m_sh, terms, src, [12])
+    once = [dict(c) for c in graphs.counters()]
+    assert sum(once[0].values()) + sum(once[2].values()) > 0
+    assert (sum(once[4].values()) > 0) == (case != "x4_order8_per_step")
+    A.reset_counts()
+    B.reset_counts()
+    for _ in range(3):
+        state = sim.run(state, m_sh, terms, src, 12)
+    assert len(sim.graphs) == 1
+    assert [dict(c) for c in graphs.counters()] == [{k: 3 * v for k, v in c.items()}
+                                                    for c in once]
+
+
+def test_sharded_timed_run_captures_before_its_first_event(dev, monkeypatch):
+    """perf_sharded.timed_run times a replay alone: no capture between its
+    CUDA events, in the warm-up's or the timed span's graph."""
+    from tpufdtd_torch.harness import perf_sharded
+
+    sim, _, _, _ = _sharded_sim([dev] * 4)
+    spans, real = [], perf_sharded.timed_span
+
+    def spy(s, fn):
+        before, launches = len(s.graphs), B.launches()
+        out = real(s, fn)
+        spans.append((before, len(s.graphs), B.launches() - launches))
+        return out
+
+    monkeypatch.setattr(perf_sharded, "timed_span", spy)
+    cfg = dataclasses.replace(sim.cfg, nsteps=13, warmup_steps=5)
+    src = tt.ricker_table(13, 1, 0.001)
+    m = np.full(sim.grid.padded_shape, 1.5, np.float32)
+    for seed in range(2):
+        assert perf_sharded.timed_run(sim, sim.grid, cfg, src, seed, m) > 0
+    assert len(spans) == 2 and all(a == b > 0 and n > 0 for a, b, n in spans)
+
+
+@pytest.mark.parametrize("case", ["x4_order4_overlap_on", "x4_order8_per_step"])
+def test_sharded_eager_loop_makes_no_implicit_sync(dev, case):
+    """A synchronisation inside the sharded loop would end a capture."""
+    sim, state, m_sh, terms = _sharded_sim([dev] * 4, *SHARDED_GRAPH_CASES[case])
+    go = sim._eager_span(state, m_sh, terms, tt.ricker_table(7, 1, 0.001), 7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        go()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["x4_order4", "x4_order4_overlap_on", "x4_order8_per_step"])
+def test_sharded_graph_on_cards_that_are_not_current(case):
+    """Four shards on cuda:1 while cuda:0 is current capture and replay on
+    cuda:1, bitwise the eager loop, and cuda:0 stays current; shards on two
+    cards take the eager route (sharded.graphed) and give the same bits."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: shards on a card that is not current")
+    torch.cuda.set_device(0)
+    one = torch.device("cuda", 1)
+    src = tt.ricker_table(7, 1, 0.001)
+    sim, state, m_sh, terms = _sharded_sim([one] * 4, *SHARDED_GRAPH_CASES[case])
+    twin = graphs.copy_state(state)
+    state = sim.run(state, m_sh, terms, src, 7)
+    twin = _sharded_eager(sim, twin, m_sh, terms, src, [7])
+    torch.cuda.synchronize(1)
+    assert sim.graphs.device == one and len(sim.graphs) == 1 and _bitwise(state, twin)
+    assert torch.cuda.current_device() == 0
+    cards = [torch.device("cuda", i) for i in (0, 0, 1, 1)]
+    sim2, state2, m_sh2, terms2 = _sharded_sim(cards, *SHARDED_GRAPH_CASES[case])
+    assert sim2.graphs is None
+    got = sim2.extract_state(sim2.run(state2, m_sh2, terms2, src, 7))
+    assert all(np.array_equal(a, b) for a, b in zip(got, sim.extract_state(state)))
 
 
 @pytest.mark.parametrize("case", ["order4", "order2_deep_k6", "order12_exact",
@@ -1035,7 +1196,7 @@ def test_run_sharded_benchmark_baseline_single_on_two_cards():
 
 COLD_CAPTURE = """
 import numpy as np, torch, tpufdtd_torch as tt
-from tpufdtd_torch.stepper import _buffers
+from tpufdtd_torch.graphs import buffers as _buffers
 n = 64
 for order, kw in ((4, {}), (2, {}), (6, {}), (12, {}), (4, {"storage_dtype": "bfloat16"}),
                   (4, {"t_fuse": 5})):

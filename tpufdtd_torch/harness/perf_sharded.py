@@ -90,9 +90,22 @@ def timed_span(sim, fn):
     return max(start.elapsed_time(end) for _dv, start, end in events) / 1e3, out
 
 
+def eager_run(sim, state, m_sh, terms, src, spans):
+    """`state` advanced through the sharded engine's eager loop (the loop
+    its graphs record) in spans of the given step counts, source row t
+    feeding step t."""
+    t = 0
+    for n in spans:
+        state = sim._eager_span(state, m_sh, terms, None if src is None else src[t:t + n], n)()
+        t += n
+    return state
+
+
 def timed_run(sim, grid: Grid3D, cfg: SimConfig, src, seed: int, m: np.ndarray) -> float:
     """One rep: random zero-rim ICs, cfg.warmup_steps untimed steps, the
-    rest timed (the single-device run_timed convention)."""
+    rest timed (the single-device run_timed convention). The timed span
+    holds its run alone: its graph is captured and its source rows staged
+    before the first event."""
     h = grid.halo
     rng = np.random.default_rng(seed)
     shape = grid.padded_shape
@@ -101,9 +114,9 @@ def timed_run(sim, grid: Grid3D, cfg: SimConfig, src, seed: int, m: np.ndarray) 
     state, m_sh, terms = sim.prepare(ua, ub, m)
     w = min(cfg.warmup_steps, cfg.nsteps)
     state = sim.run(state, m_sh, terms, None if src is None else src[:w], w)
-    secs, _ = timed_span(sim, lambda: sim.run(state, m_sh, terms,
-                                              None if src is None else src[w:cfg.nsteps],
-                                              cfg.nsteps - w))
+    secs, _ = timed_span(sim, sim._span(state, m_sh, terms,
+                                        None if src is None else src[w:cfg.nsteps],
+                                        cfg.nsteps - w))
     return secs
 
 

@@ -23,6 +23,14 @@ Shards may share a device (`make_mesh(devices=["cuda:0"] * 4)`): every
 exchange and freeze case then runs on one card, which tests them and gives
 no scaling figure. There is one host process; a multi-process
 torch.distributed form for hosts with several cards is not here.
+
+Each engine's loop (`_enqueue`) touches only device tensors; the source
+rows of a span are staged on the devices before it. On a mesh whose
+shards share one card, with the "cuda" backend, `run` replays that loop as
+one captured CUDA graph per span (graphs.py, keyed by `_key`), the
+counterpart of the JAX package's single shard_map program with the whole
+scan inside (tpufdtd/parallel/sharded.py:15-16); elsewhere it runs the loop
+eagerly (`graphed`).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import Grid3D, SimConfig
 from ..ops import stencil_step, stencil_torch
 from ..sources import DeviceSourceTerm, SourceTerm, build_source_term, inject
@@ -96,10 +105,38 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "x",
             )
         devs = tuple(torch.device("cuda", i) for i in range(n))
     else:
-        devs = tuple(resolve_device(d) for d in devices)
+        devs = tuple(_card(resolve_device(d)) for d in devices)
         if len(devs) != n:
             raise ValueError(f"{len(devs)} devices for {n} shards")
     return Mesh(ndx, ndy, devs, two_d=shape is not None)
+
+
+def _card(dev: torch.device) -> torch.device:
+    """A device with its index: "cuda" names the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def graphed(mesh: Mesh, cfg: SimConfig) -> bool:
+    """Whether a ShardedSimulator replays captured graphs: the "cuda"
+    backend on a mesh whose shards all live on one CUDA card. The "torch"
+    backend and CPU meshes stay eager, as the single device's Simulator
+    does off the card. So do meshes over several cards, by this rule, for
+    what a capture over cards does on four H100s (harness/cards_probe.py):
+    the first cross-card copy inside a capture fails with "CUDA error:
+    operation not permitted when stream is capturing" (it enables peer
+    access) and invalidates it ("operation failed due to a previous error
+    during capture"); after an eager span CUDA accepts the capture, a
+    stream forked onto each card by an event, and its replay is bitwise the
+    eager loop, but torch.cuda.graph gives it a private memory pool on the
+    capturing card only: what the loop allocates on the other cards (the
+    plain step's and scatter-adds' temporaries) comes from their ordinary
+    pools and is handed out again after the capture, so a replay may read
+    or write tensors allocated since (one probe run ended in a device-side
+    assert, "index out of bounds")."""
+    return (cfg.backend == "cuda" and mesh.cards == 1
+            and mesh.devices[0].type == "cuda")
 
 
 def _local_grid(grid: Grid3D, ndev: int) -> Grid3D:
@@ -149,6 +186,13 @@ class ShardedSimulator:
 
     Host-facing arrays are global reference-layout arrays; `prepare` cuts
     them into shards on their devices and `extract_state` gathers them.
+
+    Where `graphs` is not None (`graphed`), each span is a CUDA graph: the
+    first span with a key captures the loop, which records and runs
+    nothing, and every span replays it. As on the single device, `run`
+    advances the state in place: use the state returned, and do not resize
+    or re-stride its tensors between runs. A capture or replay that fails
+    raises; nothing retries eagerly.
     """
 
     def __init__(self, grid: Grid3D, cfg: SimConfig, m: np.ndarray, mesh: Mesh,
@@ -157,6 +201,9 @@ class ShardedSimulator:
 
         self.grid, self.cfg, self.mesh = grid, cfg, mesh
         self.ndev = mesh.size
+        # key (engine, nsteps, source-table shape, buffers, what the loop
+        # reads) -> graphs.Graph; None: eager
+        self.graphs = graphs.Graphs(mesh.devices[0]) if graphed(mesh, cfg) else None
         self.mesh_2d = mesh.two_d
         self.h, self.R = grid.halo, grid.radius
         self.sweep = SweepShard.try_build(grid, cfg, m, mesh, src_coords)
@@ -254,25 +301,72 @@ class ShardedSimulator:
                      for d, dv in enumerate(devs)]
         return state, m_sh, terms
 
-    @torch.no_grad()
-    def run(self, state, m_sh, terms, src: Optional[np.ndarray], nsteps: int):
-        """Advance by nsteps; src row t feeds step t of this span."""
+    def _rows(self, state, terms, src, n: int):
+        """The span's source rows (row t feeds step t) as a contiguous f32
+        host array; None without sources."""
+        sourced = self.sweep.entries is not None if isinstance(state, dict) else terms is not None
+        if src is None or not sourced:
+            return None
+        return np.ascontiguousarray(np.asarray(src[:n], np.float32))
+
+    def _key(self, state, m_sh, terms, rows, n: int) -> tuple:
+        """A span's graph key (graphs.span_key): the engine, n, the source
+        table's shape, the state's buffers and, on the per-step engine, the
+        medium and source terms it reads (a scalar m by value, tensors by
+        address), so a graph never replays against another medium or term."""
         if isinstance(state, dict):
-            return {"sweep": self.sweep.run(state["sweep"], src, nsteps)}
-        have_src = src is not None and terms is not None
-        tables = {}
-        if have_src:
-            for dv in set(self.mesh.devices):
-                tables[dv] = torch.as_tensor(np.asarray(src[:nsteps], np.float32), device=dv)
+            return graphs.span_key("sweep", n, rows, state)
+        reads = (list(m_sh), [None if t is None else (*t.index, t.scale, t.src_idx)
+                              for t in terms or ()])
+        return graphs.span_key("per-step", n, rows, state, reads)
+
+    @torch.no_grad()
+    def _enqueue(self, state, m_sh, terms, tables, nsteps: int):
+        """nsteps steps of every shard from staged source tables (per
+        device, [nsteps, nsrc] f32, or None), touching only device tensors:
+        the loop a graph records, the counterpart of the JAX package's
+        shard_map programs."""
+        if isinstance(state, dict):
+            return {"sweep": self.sweep.enqueue(state["sweep"], tables, nsteps)}
         P, C, T = (list(x) for x in state)
         for t in range(nsteps):
             self._exchange(C)
             for d in range(self.ndev):
                 un = self._step(C[d], P[d], m_sh[d], T[d])
-                if have_src and terms[d] is not None:
+                if tables is not None and terms[d] is not None:
                     inject(un, terms[d], tables[self.mesh.devices[d]][t])
             P, C, T = C, T, P
         return tuple(P), tuple(C), tuple(T)
+
+    def _eager_span(self, state, m_sh, terms, src, n: int):
+        """A callable that runs the eager loop for n steps, source row t of
+        `src` feeding step t; the rows are copied to each device here."""
+        rows = self._rows(state, terms, src, n)
+        tables = None if rows is None else {
+            dv: torch.as_tensor(rows, device=dv) for dv in dict.fromkeys(self.mesh.devices)}
+        return lambda: self._enqueue(state, m_sh, terms, tables, n)
+
+    def _span(self, state, m_sh, terms, src, n: int):
+        """A callable that advances `state` by n steps, source row t of `src`
+        feeding step t, and returns the new state. Everything but the run
+        happens here: the source rows' copy to the device and, on the card,
+        the capture."""
+        if n == 0:
+            return lambda: state
+        if self.graphs is None:
+            return self._eager_span(state, m_sh, terms, src, n)
+        card = self.graphs.device
+        if isinstance(state, dict):
+            self.sweep.side_streams()  # made before the capture, which forks onto them
+        rows = self._rows(state, terms, src, n)
+        return self.graphs.span(
+            self._key(state, m_sh, terms, rows, n), state, rows,
+            lambda tab: self._enqueue(state, m_sh, terms, None if tab is None else {card: tab},
+                                      n))
+
+    def run(self, state, m_sh, terms, src: Optional[np.ndarray], nsteps: int):
+        """Advance by nsteps; src row t feeds step t of this span."""
+        return self._span(state, m_sh, terms, src, nsteps)()
 
     def synchronize(self) -> None:
         """Wait for every CUDA device of the mesh."""

@@ -61,8 +61,10 @@ saved before the edge slabs run and put back after. Every true-region value
 comes from the same inputs through the same arithmetic as in the serial
 order, so the block is bitwise the serial one, sources included. Eligible
 as in the JAX package: overlap != "off", more than one x-shard, K >= 2 and
-nxk - 2E >= 8. "on" runs it whenever eligible; "auto" runs it where every
-shard has a device of its own and keeps the serial order where shards share
+nxk - 2E >= 8. Under a capture (ShardedSimulator's graphs) the side stream
+forks from the capture stream by the same event and joins back, so both
+branches are recorded. "on" runs it whenever eligible; "auto" runs it where
+every shard has a device of its own and keeps the serial order where shards share
 a device (ROADMAP Queue 3, "Deliberate: the overlap on one card").
 """
 
@@ -332,10 +334,13 @@ class SweepShard:
             frozen_ylo=fylo, frozen_yhi=fyhi,
         )
 
-    def _side_stream(self, dev) -> torch.cuda.Stream:
-        if dev not in self._side:
-            self._side[dev] = torch.cuda.Stream(device=dev)
-        return self._side[dev]
+    def side_streams(self) -> None:
+        """Make the overlap's side stream on each card of the mesh (a
+        capture forks onto them)."""
+        if self.overlap:
+            for dev in dict.fromkeys(self.mesh.devices):
+                if dev.type == "cuda" and dev not in self._side:
+                    self._side[dev] = torch.cuda.Stream(device=dev)
 
     def _block(self, states, kk: int):
         """One kk-step block of every shard: [u_{n-1}, u_n] in each state's
@@ -351,20 +356,21 @@ class SweepShard:
                 self._kern(*states[dx][dy], dx, dy, kk)
             return
         cards = [d for d in dict.fromkeys(self.mesh.devices) if d.type == "cuda"]
+        self.side_streams()
         for d in cards:  # the side stream starts after the y exchange
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(d))
-            self._side_stream(d).wait_event(ready)
+            self._side[d].wait_event(ready)
         for dx, dy in shards:
             self._kern(*states[dx][dy], dx, dy, kk, "mid")
         with contextlib.ExitStack() as side:
             for d in cards:
-                side.enter_context(torch.cuda.stream(self._side_stream(d)))
+                side.enter_context(torch.cuda.stream(self._side[d]))
             self._exchange_x(Us)
             landed = {}
             for d in cards:
                 landed[d] = torch.cuda.Event()
-                landed[d].record(self._side_stream(d))
+                landed[d].record(self._side[d])
         for d in cards:
             torch.cuda.current_stream(d).wait_event(landed[d])
         h, M, E, nxk = self.h, self.M, self.E, self.lgrid.nx
@@ -388,14 +394,11 @@ class SweepShard:
         U.view(-1).index_put_((flat,), vals, accumulate=True)
 
     @torch.no_grad()
-    def run(self, states, src: Optional[np.ndarray], nsteps: int):
+    def enqueue(self, states, tables, nsteps: int):
         """Advance per-shard states by nsteps in blocks of K (the last block
-        shorter); src row t feeds step t of this span."""
-        have_src = src is not None and self.entries is not None
-        tables = {}
-        if have_src:
-            for dv in set(self.mesh.devices):
-                tables[dv] = torch.as_tensor(np.asarray(src[:nsteps], np.float32), device=dv)
+        shorter), touching only device tensors; `tables` holds each device's
+        staged source table ([nsteps, nsrc] f32, row t feeding step t of
+        this span), or is None without sources."""
         states = [list(col) for col in states]
         done = 0
         while done < nsteps:
@@ -404,7 +407,7 @@ class SweepShard:
             for dx in range(self.ndx):
                 for dy in range(self.ndy):
                     U, spare = states[dx][dy]
-                    ent = self.entries[dx][dy] if have_src else None
+                    ent = self.entries[dx][dy] if tables is not None else None
                     if ent is not None:
                         tab = tables[self.mesh.device(dx, dy)]
                         self._correct(spare, ent[kk], tab[done: done + kk])

@@ -42,14 +42,12 @@ package's un-jitted run_scan and _run_sweep. On a CUDA device the "cuda"
 backend's Simulator runs that loop as one captured CUDA graph per span (the
 counterpart of the JAX package's jitted _run): the loop is captured once
 per (ring, nsteps, state buffers, source-table shape) and each later span
-on those buffers is one replay. The "torch" backend and CPU devices stay
-eager.
+on those buffers is one replay (graphs.py, which the sharded engines share).
+The "torch" backend and CPU devices stay eager.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
 import functools
 import time
@@ -58,8 +56,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import graphs
 from .config import Grid3D, SimConfig
-from .ops import _build, stencil_step, stencil_sweep, stencil_torch
+from .ops import stencil_step, stencil_sweep, stencil_torch
 from .sources import (
     DeviceSourceTerm,
     build_source_term,
@@ -338,98 +337,6 @@ def run_scan(state, m_args, src_table, *, engine, nsteps: int):
     return (P, C, T)
 
 
-GRAPH_CACHE = 8  # captured spans a Simulator keeps; the least recently used goes first
-
-
-def _counters() -> tuple:
-    """The kernels' launch counters, in a fixed order."""
-    return (stencil_step.counts["kernel"], stencil_step.counts["plain"],
-            stencil_sweep.counts["kernel"], stencil_sweep.counts["plain"],
-            stencil_sweep.frozen_counts)
-
-
-@contextlib.contextmanager
-def _counts_kept():
-    """Launches counted inside the block are taken back on leaving it;
-    yields the counts as they were on entry, in `_counters()`'s order."""
-    saved = [collections.Counter(c) for c in _counters()]
-    try:
-        yield saved
-    finally:
-        for c, s in zip(_counters(), saved):
-            c.clear()
-            c.update(s)
-
-
-def _graph_nodes(graph) -> Tuple[int, int]:
-    """(nodes, kernel nodes) of a capture's recorded graph (kept with
-    keep_graph), read through the CUDA driver's cuGraphGetNodes and
-    cuGraphNodeGetType."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-
-    def check(rc):
-        if rc:
-            raise RuntimeError(f"reading a captured graph's nodes: CUDA driver error {rc}")
-
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
-    nodes = (ctypes.c_void_p * n.value)()
-    if n.value:
-        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
-    kind, kernels = ctypes.c_int(), 0
-    for node in nodes:
-        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    return n.value, kernels
-
-
-def _buffers(state) -> tuple:
-    """Every tensor of a state, in order: (U, spare) or (P, C, T)."""
-    return tuple(state["sweep"]) if isinstance(state, dict) else tuple(state)
-
-
-def _state_of(like, buffers):
-    """A state of `like`'s ring over `buffers`."""
-    return {"sweep": tuple(buffers)} if isinstance(like, dict) else tuple(buffers)
-
-
-class _Graph:
-    """One span of the eager loop, captured as a CUDA graph.
-
-    The graph holds the addresses of the state buffers it was captured on,
-    the engine's constants (cubes, w, m, source indices) and its own source
-    table `src` ([nsteps, nsrc] f32 on the card, or None), which `load`
-    fills before a replay. `roles[i]` is the input buffer that holds level
-    i of the output state. `deltas` are the launches of one replay per
-    counter of `_counters()`: the wrappers count when they are called,
-    which is at capture, so a replay adds them. `nodes` and `kernels`
-    count the recorded graph's nodes and its kernel nodes."""
-
-    def __init__(self, graph, device, src, roles, deltas, nodes: int, kernels: int,
-                 seconds: float):
-        self.graph, self.device, self.src, self.roles = graph, device, src, roles
-        self.deltas, self.nodes, self.kernels = deltas, nodes, kernels
-        self.seconds = seconds  # the capture's wall time, instantiation included
-
-    def load(self, rows) -> None:
-        if self.src is not None:
-            self.src.copy_(torch.from_numpy(rows))
-
-    def launch(self, state):
-        with torch.cuda.device(self.device):  # replay() launches on the current device's stream
-            self.graph.replay()
-        for counter, delta in zip(_counters(), self.deltas):
-            counter.update(delta)
-        bufs = _buffers(state)
-        return _state_of(state, [bufs[r] for r in self.roles])
-
-
 class Simulator:
     """One (grid, config, sources, device) combination.
 
@@ -439,7 +346,7 @@ class Simulator:
     and device="cpu" runs the plain versions of the kernels.
 
     On a CUDA device the "cuda" backend runs each span as a CUDA graph
-    (`graphs`, at most GRAPH_CACHE of them): the first span on a set of
+    (`graphs`, at most graphs.GRAPH_CACHE of them): the first span on a set of
     state buffers captures the engine's loop, which records and runs
     nothing, and every span replays it. Like the JAX package's donated
     state, the state passed to run or run_timed is advanced in place: use
@@ -457,10 +364,9 @@ class Simulator:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.engine = make_engine(grid, cfg, m, src_coords, device=self.device)
         self.last_clock = None  # run_timed's clock: "cuda_event" or "host"
-        # key (ring, nsteps, source-table shape, buffers) -> _Graph; None: eager
-        self.graphs = (collections.OrderedDict()
+        # key (ring, nsteps, source-table shape, buffers) -> graphs.Graph; None: eager
+        self.graphs = (graphs.Graphs(self.device)
                        if self.device.type == "cuda" and cfg.backend == "cuda" else None)
-        self._capture_stream = None  # a side stream on self.device, made at the first capture
 
     def prepare_state(self, u_prev, u_cur, u_target=None):
         """Device state from host ICs; the third level defaults to a copy of
@@ -522,56 +428,6 @@ class Simulator:
             return None
         return np.ascontiguousarray(np.asarray(src[t0:t1], np.float32))
 
-    def _capture(self, state, rows, n: int) -> _Graph:
-        """Record n steps of the engine's loop on `state`'s buffers, on a
-        side stream of this Simulator's card (torch.cuda.graph's shared
-        default stream lives on whichever card was current at its first
-        use); call under torch.cuda.device(self.device)."""
-        bufs = _buffers(state)
-        if any(b.device != self.device for b in bufs):
-            raise ValueError(f"a captured span needs every state buffer on {self.device}; got"
-                             f" {[str(b.device) for b in bufs]}")
-        _build.library()  # nvcc and the library's load stay outside the capture
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        src = None if rows is None else torch.empty(rows.shape, dtype=torch.float32,
-                                                    device=self.device)
-        # keep_graph: the recorded graph stays readable (raw_cuda_graph), to
-        # check its nodes against the launches counted at capture
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with _counts_kept() as before:  # the capture launched nothing
-            with torch.no_grad(), torch.cuda.graph(graph, stream=self._capture_stream):
-                out = self.engine.run_scan(state, self.engine.m_args, src, n)
-            deltas = [c - b for c, b in zip(_counters(), before)]
-        nodes, kernels = _graph_nodes(graph)
-        launched = sum(deltas[0].values()) + sum(deltas[2].values())
-        plain = sum(deltas[1].values()) + sum(deltas[3].values())
-        if not nodes or kernels < launched or plain:
-            raise RuntimeError(
-                f"the captured span recorded {nodes} nodes, {kernels} of them kernels, for"
-                f" {launched} kernel launches and {plain} plain steps counted at capture")
-        graph.instantiate()
-        ptrs = [b.data_ptr() for b in bufs]
-        outs = [b.data_ptr() for b in _buffers(out)]
-        if any(p not in ptrs for p in outs):
-            raise RuntimeError("the captured span returned a buffer that is not the state's")
-        return _Graph(graph, self.device, src, tuple(ptrs.index(p) for p in outs), deltas,
-                      nodes, kernels, time.perf_counter() - t0)
-
-    def _graph(self, state, rows, n: int) -> _Graph:
-        """The span's graph, captured on first use of these buffers."""
-        key = (isinstance(state, dict), n, None if rows is None else rows.shape,
-               tuple((b.data_ptr(), str(b.device), b.dtype, tuple(b.shape), b.stride())
-                     for b in _buffers(state)))
-        graph = self.graphs.pop(key, None)
-        if graph is None:
-            graph = self._capture(state, rows, n)
-        self.graphs[key] = graph
-        while len(self.graphs) > GRAPH_CACHE:
-            self.graphs.popitem(last=False)
-        return graph
-
     def _span(self, state, rows, n: int):
         """A callable that advances `state` by n steps, source row t (of
         `rows`, None without sources) feeding step t, and returns the new
@@ -582,10 +438,9 @@ class Simulator:
         if self.graphs is None:
             table = None if rows is None else torch.as_tensor(rows, device=self.device)
             return lambda: self.engine.run_scan(state, self.engine.m_args, table, n)
-        with torch.cuda.device(self.device):
-            graph = self._graph(state, rows, n)
-            graph.load(rows)
-        return lambda: graph.launch(state)
+        key = graphs.span_key(isinstance(state, dict), n, rows, state)
+        return self.graphs.span(key, state, rows,
+                                lambda src: self.engine.run_scan(state, self.engine.m_args, src, n))
 
     def run(self, state, src: Optional[np.ndarray] = None, nsteps: Optional[int] = None):
         """Advance the state by nsteps (default cfg.nsteps); src row t feeds
@@ -597,7 +452,7 @@ class Simulator:
     def _copy(state):
         """A copy of a state on the device, for a timing run that must not
         advance the physics."""
-        return _state_of(state, [x.clone() for x in _buffers(state)])
+        return graphs.copy_state(state)
 
     def run_timed(self, state, src: Optional[np.ndarray] = None, timing_repeat: int = 1):
         """The reference timing convention: cfg.warmup_steps untimed steps,
