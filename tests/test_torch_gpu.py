@@ -14,6 +14,7 @@ the bound adds one bf16 ulp of the element (2^-8 to 2^-7 of its value).
 """
 
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -894,6 +895,40 @@ def test_graph_cache_stays_bounded(dev):
         sim.run(st, src, 4)
         assert len(sim.graphs) <= GRAPH_CACHE
     assert len(sim.graphs) == GRAPH_CACHE
+
+
+def test_program_spans_stay_off_the_device_timeline(dev):
+    """Traced with CUDA activity, a shot's ranges are host events only: no
+    annotation on the device's timeline, which a reader of device intervals
+    would count as device work. The transfers record their bytes, the graph
+    cache counts what it captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufdtd_torch.utils import tracing
+
+    sim, _ = _graph_sim(dev)
+    src = tt.ricker_table(GRAPH_STEPS, 1, 0.001)
+    levels = _zero_rim_pair(sim.grid, 4)
+    state = sim.prepare_state(*levels)
+    for _ in range(2):  # both roles of the fast ring's buffers captured before the trace
+        state = sim.run(state, src)
+    tracing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = sim.extract_state(sim.run(state, src))
+        fresh = sim.prepare_state(*levels)
+        torch.cuda.synchronize()
+    ours = [e for e in prof.events() if e.name.startswith(tracing.PREFIX + ".")]
+    assert {e.name.split(".", 1)[1] for e in ours} == {
+        "run", "load", "replay", "extract_state", "d2h", "prepare_state", "rims", "stage", "h2d",
+        "assemble"}
+    assert all(e.device_type == torch.autograd.DeviceType.CPU for e in ours)
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    moved = Counter()
+    for name, _a, _b, nbytes in tracing.record:
+        moved[name] += nbytes
+    level = levels[0].nbytes
+    assert moved == Counter(h2d=2 * level, d2h=2 * level) and len(out) == 2 and fresh
+    assert not tracing.counts  # both spans were captured before the trace
 
 
 @pytest.mark.parametrize("bad", ["spare_on_cpu", "spare_in_bf16", "target_on_cpu"])

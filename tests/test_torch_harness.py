@@ -203,16 +203,11 @@ def test_cli_flags_override_the_environment(monkeypatch, capsys):
 
 
 def test_tracing_on_the_cpu(tmp_path):
-    """sync is a no-op for CPU tensors; timed_section accumulates; trace
-    writes a Chrome trace and traces nothing without a logdir; the CPU run
-    has no device events, so its device busy time is 0."""
+    """sync is a no-op for CPU tensors; trace writes a Chrome trace and
+    traces nothing without a logdir; the CPU run has no device events, so
+    its device busy time is 0."""
     state = {"sweep": (torch.zeros(3), torch.ones(2))}
     tracing.sync(state)
-    timers = {}
-    for _ in range(2):
-        with tracing.timed_section(timers, "step", fence=state):
-            torch.ones(8).sum()
-    assert timers["step"] > 0
     with tracing.trace(None) as prof:
         assert prof is None
     with tracing.trace(str(tmp_path)) as prof:

@@ -27,6 +27,7 @@ from typing import Callable, Tuple
 import torch
 
 from .ops import _build, stencil_step, stencil_sweep
+from .utils import tracing
 
 GRAPH_CACHE = 8  # captured spans a simulator keeps; the least recently used goes first
 
@@ -151,10 +152,12 @@ class Graph:
 
     def load(self, rows) -> None:
         if self.src is not None:
-            self.src.copy_(torch.from_numpy(rows))
+            with tracing.span("load"):
+                self.src.copy_(torch.from_numpy(rows))
 
     def launch(self, state):
-        with torch.cuda.device(self.device):  # replay() launches on the current device's stream
+        # replay() launches on the current device's stream
+        with tracing.span("replay"), torch.cuda.device(self.device):
             self.graph.replay()
         for counter, delta in zip(counters(), self.deltas):
             counter.update(delta)
@@ -166,7 +169,8 @@ class Graphs(collections.OrderedDict):
     """key -> Graph: the GRAPH_CACHE most recently used spans of a
     simulator on one card, each captured on a stream of that card (not
     torch.cuda.graph's shared default stream, which lives on whichever card
-    was current at its first use)."""
+    was current at its first use). Its captures and the spans it drops past
+    GRAPH_CACHE go to utils.tracing.counts (`captures`, `evictions`)."""
 
     def __init__(self, device: torch.device):
         super().__init__()
@@ -183,9 +187,11 @@ class Graphs(collections.OrderedDict):
             graph = self.pop(key, None)
             if graph is None:
                 graph = self._capture(state, rows, enqueue)
+                tracing.counts["captures"] += 1
             self[key] = graph
             while len(self) > GRAPH_CACHE:
                 self.popitem(last=False)
+                tracing.counts["evictions"] += 1
             graph.load(rows)
         return lambda: graph.launch(state)
 
@@ -199,23 +205,24 @@ class Graphs(collections.OrderedDict):
         _build.library()  # nvcc and the library's load stay outside the capture
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        src = None if rows is None else torch.empty(rows.shape, dtype=torch.float32,
-                                                    device=self.device)
-        # keep_graph: the recorded graph stays readable (raw_cuda_graph), to
-        # check its nodes against the launches counted at capture
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with counts_kept() as before:  # the capture launched nothing
-            with torch.no_grad(), torch.cuda.graph(graph, stream=self._stream):
-                out = enqueue(src)
-            deltas = [c - b for c, b in zip(counters(), before)]
-        nodes, kernels = graph_nodes(graph)
-        launched = sum(deltas[0].values()) + sum(deltas[2].values())
-        plain = sum(deltas[1].values()) + sum(deltas[3].values())
-        if not nodes or kernels < launched or plain:
-            raise RuntimeError(
-                f"the captured span recorded {nodes} nodes, {kernels} of them kernels, for"
-                f" {launched} kernel launches and {plain} plain steps counted at capture")
-        graph.instantiate()
-        return Graph(graph, self.device, src, roles(state, out), deltas, nodes, kernels,
-                     time.perf_counter() - t0)
+        with tracing.span("capture"):  # instantiation included
+            src = None if rows is None else torch.empty(rows.shape, dtype=torch.float32,
+                                                        device=self.device)
+            # keep_graph: the recorded graph stays readable (raw_cuda_graph), to
+            # check its nodes against the launches counted at capture
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            t0 = time.perf_counter()
+            with counts_kept() as before:  # the capture launched nothing
+                with torch.no_grad(), torch.cuda.graph(graph, stream=self._stream):
+                    out = enqueue(src)
+                deltas = [c - b for c, b in zip(counters(), before)]
+            nodes, kernels = graph_nodes(graph)
+            launched = sum(deltas[0].values()) + sum(deltas[2].values())
+            plain = sum(deltas[1].values()) + sum(deltas[3].values())
+            if not nodes or kernels < launched or plain:
+                raise RuntimeError(
+                    f"the captured span recorded {nodes} nodes, {kernels} of them kernels, for"
+                    f" {launched} kernel launches and {plain} plain steps counted at capture")
+            graph.instantiate()
+            return Graph(graph, self.device, src, roles(state, out), deltas, nodes, kernels,
+                         time.perf_counter() - t0)

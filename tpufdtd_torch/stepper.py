@@ -66,6 +66,7 @@ from .sources import (
     inject,
     injection_cubes_upto,
 )
+from .utils import tracing
 
 # Fusion depth of the fast ring per radius when SimConfig.t_fuse == 0: the
 # fastest K per step of kernel B's f32 scalar-m mode at 512^3 on an H100
@@ -85,6 +86,13 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested, but torch.cuda.is_available() is False"
         )
     return dev
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A level as a host f32 array."""
+    x = x.float()
+    with tracing.span("d2h", x.nbytes if x.is_cuda else 0):
+        return x.cpu().numpy()
 
 
 def _rims_identical(arrs, h: int) -> bool:
@@ -116,14 +124,18 @@ class _Engine:
         return torch.tensor(np.asarray(a, np.float32), device=self.device)
 
     def level(self, u_ref) -> torch.Tensor:
-        """A host level on the device in the storage dtype."""
-        return torch.tensor(np.asarray(u_ref, np.float32)).to(self.dtype).to(self.device)
+        """A host level on the device in the storage dtype: a host copy in
+        that dtype (`stage`), then its transfer (`h2d`)."""
+        with tracing.span("stage"):
+            host = torch.tensor(np.asarray(u_ref, np.float32)).to(self.dtype)
+        with tracing.span("h2d", host.nbytes if self.device.type == "cuda" else 0):
+            return host.to(self.device)
 
     def prepare_state(self, u_prev, u_cur, u_target):
         return (self.level(u_prev), self.level(u_cur), self.level(u_target))
 
     def extract_state(self, state):
-        return tuple(x.float().cpu().numpy() for x in state)
+        return tuple(_to_host(x) for x in state)
 
     @property
     def m_args(self) -> tuple:
@@ -261,15 +273,21 @@ class CudaEngine(_Engine):
         return stencil_step.leapfrog_step(C, P, m_args[0], T, grid=self.grid, dt=self.cfg.dt)
 
     def prepare_state(self, u_prev, u_cur, u_target):
-        if self.sweep_k and _rims_identical([u_prev, u_cur, u_target], self.grid.halo):
-            U = torch.stack([self.level(u_prev), self.level(u_cur)])
-            return {"sweep": (U, U.clone())}
-        if self.sweep_k and self.dtype == torch.bfloat16:
-            raise ValueError(
-                "bfloat16 storage on the fast ring needs identical rims across all"
-                " ring levels (standard ICs satisfy this); use ring='exact' or"
-                " backend='torch' for bf16 with differing rims"
-            )
+        if self.sweep_k:
+            with tracing.span("rims"):
+                fast = _rims_identical([u_prev, u_cur, u_target], self.grid.halo)
+            if fast:
+                levels = [self.level(u_prev), self.level(u_cur)]
+                with tracing.span("assemble"):
+                    U = torch.stack(levels)
+                    del levels  # the levels go before the spare is allocated: no third copy at the peak
+                    return {"sweep": (U, U.clone())}
+            if self.dtype == torch.bfloat16:
+                raise ValueError(
+                    "bfloat16 storage on the fast ring needs identical rims across all"
+                    " ring levels (standard ICs satisfy this); use ring='exact' or"
+                    " backend='torch' for bf16 with differing rims"
+                )
         if self.cfg.ring == "fast":
             raise ValueError("ring='fast' requires identical rims across all ring levels")
         return super().prepare_state(u_prev, u_cur, u_target)
@@ -277,7 +295,7 @@ class CudaEngine(_Engine):
     def extract_state(self, state):
         if isinstance(state, dict):
             U, _spare = state["sweep"]
-            return (U[0].float().cpu().numpy(), U[1].float().cpu().numpy())
+            return (_to_host(U[0]), _to_host(U[1]))
         return super().extract_state(state)
 
     def _correct(self, U, s, kk: int):
@@ -372,7 +390,9 @@ class Simulator:
         """Device state from host ICs; the third level defaults to a copy of
         u_cur, which reproduces both reference IC setups."""
         ut = u_cur if u_target is None else u_target
-        return self.engine.prepare_state(np.asarray(u_prev), np.asarray(u_cur), np.asarray(ut))
+        with tracing.span("prepare_state"):
+            return self.engine.prepare_state(np.asarray(u_prev), np.asarray(u_cur),
+                                             np.asarray(ut))
 
     def state_spec(self):
         """The state prepare_state returns for standard ICs (identical rims),
@@ -419,7 +439,8 @@ class Simulator:
     def extract_state(self, state):
         """Host reference-layout arrays: (u_{N-1}, u_N, u_{N-2}) on the
         exact ring, (u_{N-1}, u_N) on the fast ring."""
-        return self.engine.extract_state(state)
+        with tracing.span("extract_state"):
+            return self.engine.extract_state(state)
 
     def _src_rows(self, src, t0: int, t1: int):
         """Rows t0..t1 of the source table as a contiguous f32 host array;
@@ -446,7 +467,8 @@ class Simulator:
         """Advance the state by nsteps (default cfg.nsteps); src row t feeds
         step t of this span."""
         n = self.cfg.nsteps if nsteps is None else nsteps
-        return self._span(state, self._src_rows(src, 0, n), n)()
+        with tracing.span("run"):
+            return self._span(state, self._src_rows(src, 0, n), n)()
 
     @staticmethod
     def _copy(state):

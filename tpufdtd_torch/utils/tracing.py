@@ -7,10 +7,15 @@ and nsys/ncu recipes (SURVEY.md §5). Here:
   * `trace(logdir)`: a torch.profiler context (CPU and, with a card, CUDA
     activities) that writes a Chrome trace to logdir/trace.json, the nsys
     analogue; nothing when logdir is None;
-  * `timed_section(timers, name, fence)`: wall time into timers[name], the
-    reference's START/STOP macro pair (openacc.cpp:2-3);
   * `device_busy_us(prof)`: the time the device spent in kernels and copies
-    over a traced window, the union of their intervals.
+    over a traced window, the union of their intervals;
+  * `span(name, nbytes)`: the program's own range `tpufdtd_torch.<name>`
+    around a host call (the reference's START/STOP macro pair,
+    openacc.cpp:2-3), on the profiler's clock while one runs;
+  * `counts`: the process's graph `captures` and `evictions`, with
+    `reset_counts()`;
+  * `record`: the spans entered while a profiler ran, with the bytes each
+    moved, for a reader that does not hold the profiler.
 """
 
 from __future__ import annotations
@@ -18,9 +23,22 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Optional
+from collections import Counter
+from typing import Optional
 
 import torch
+
+PREFIX = "tpufdtd_torch"  # the program's ranges: tpufdtd_torch.<span name>
+
+counts = Counter()
+# while a profiler runs, one (name, start_ns, end_ns, nbytes) per span, in the
+# order the spans ended, on time.perf_counter_ns
+record = []
+
+
+def reset_counts() -> None:
+    counts.clear()
+    record.clear()
 
 
 def _tensors(x):
@@ -74,15 +92,21 @@ def device_busy_us(prof) -> float:
 
 
 @contextlib.contextmanager
-def timed_section(timers: Dict[str, float], name: str, fence=None):
-    """Add the block's wall time to timers[name]; `fence` (tensors) is
-    synced before and after, so the time covers the device work."""
-    if fence is not None:
-        sync(fence)
-    t0 = time.perf_counter()
-    try:
+def span(name: str, nbytes: int = 0):
+    """The block as the program's range `tpufdtd_torch.<name>`; `nbytes`, what
+    it moves, goes with it to `record`. Without a profiler running the range
+    is not opened and nothing is recorded. It is a FUNCTION-scope range, not
+    torch.profiler.record_function's user scope: a user range is mirrored on
+    the device's timeline as an annotation over the kernels it launched, which
+    a reader of device intervals would count as device work. Never
+    synchronizes.
+
+    Both names used here are torch's private ones (torch 2.11); a torch that
+    renames them fails tests/test_torch_tracing.py."""
+    if not torch.autograd._profiler_enabled():
         yield
-    finally:
-        if fence is not None:
-            sync(fence)
-        timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
+        return
+    t0 = time.perf_counter_ns()
+    with torch._C._profiler._RecordFunctionFast(f"{PREFIX}.{name}"):
+        yield
+    record.append((name, t0, time.perf_counter_ns(), nbytes))
