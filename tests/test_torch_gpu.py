@@ -27,7 +27,7 @@ from tpufdtd_torch.harness.span_times import eager_run
 from tpufdtd_torch.ops import stencil_step as A
 from tpufdtd_torch.ops import stencil_sweep as B
 from tpufdtd_torch.graphs import GRAPH_CACHE, buffers as _buffers
-from tpufdtd_torch.stepper import Simulator
+from tpufdtd_torch.stepper import Simulator, Staging
 
 pytestmark = pytest.mark.gpu
 RTOL = 1e-5
@@ -919,8 +919,8 @@ def test_program_spans_stay_off_the_device_timeline(dev):
         torch.cuda.synchronize()
     ours = [e for e in prof.events() if e.name.startswith(tracing.PREFIX + ".")]
     assert {e.name.split(".", 1)[1] for e in ours} == {
-        "run", "load", "replay", "extract_state", "d2h", "prepare_state", "rims", "stage", "h2d",
-        "assemble"}
+        "run", "load", "replay", "extract_state", "d2h", "prepare_state", "rims", "h2d",
+        "assemble"}  # no `stage`: on the card a level's host copies are inside its transfer
     assert all(e.device_type == torch.autograd.DeviceType.CPU for e in ours)
     assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
     moved = Counter()
@@ -928,7 +928,136 @@ def test_program_spans_stay_off_the_device_timeline(dev):
         moved[name] += nbytes
     level = levels[0].nbytes
     assert moved == Counter(h2d=2 * level, d2h=2 * level) and len(out) == 2 and fresh
-    assert not tracing.counts  # both spans were captured before the trace
+    # both spans were captured before the trace; the four levels went through the slots
+    assert not tracing.counts["captures"] and not tracing.counts["evictions"]
+    assert tracing.counts["staged_bytes"] == 4 * level
+    assert set(tracing.counts) <= {"captures", "evictions", "staged_bytes", "staging_waits"}
+
+
+STAGING_CASES = {  # name -> (order, storage, ring, backend): both rings, f32 and bf16
+    "fast_f32": (4, "float32", "auto", "cuda"),
+    "fast_bf16": (4, "bfloat16", "auto", "cuda"),
+    "exact_f32": (4, "float32", "exact", "cuda"),
+    "exact_bf16": (4, "bfloat16", "exact", "cuda"),
+    "torch_f32": (4, "float32", "exact", "torch"),
+}
+SMALL_SLOTS = 96 << 10  # 16 chunks of a 72^3 f32 level, over 2 slots
+
+
+def _staged_sim(dev, case, slot_bytes=None):
+    """A Simulator of STAGING_CASES[case] on the card; with slot_bytes, its
+    engine stages through two slots of that size instead of its own."""
+    order, storage, ring, backend = STAGING_CASES[case]
+    n = GRAPH_N
+    g = tt.Grid3D(n, n, n, order=order)
+    cfg = tt.SimConfig(dt=0.001, nsteps=GRAPH_STEPS, storage_dtype=storage, ring=ring,
+                       backend=backend)
+    sim = tt.Simulator(g, cfg, np.full(g.padded_shape, 1.5, np.float32),
+                       tt.default_source_coords(1, n, n, n), device=dev)
+    assert bool(getattr(sim.engine, "sweep_k", 0)) == (ring == "auto")
+    if slot_bytes is not None:
+        sim.engine.staging = Staging(sim.device, sim.engine.dtype, slots=2, slot_bytes=slot_bytes)
+    return sim
+
+
+def _unstaged(sim, levels):
+    """The levels on the card by the copies without slots: a host copy in
+    the storage dtype, then a pageable transfer."""
+    return [torch.tensor(np.asarray(u, np.float32)).to(sim.engine.dtype).to(sim.device)
+            for u in levels]
+
+
+def _state_levels(state):
+    return list(state["sweep"][0]) if isinstance(state, dict) else list(state)
+
+
+def _same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("slot_bytes", [None, SMALL_SLOTS])
+@pytest.mark.parametrize("case", list(STAGING_CASES))
+def test_staged_transfers_are_bitwise_the_unstaged(dev, case, slot_bytes):
+    """prepare_state puts bitwise the levels the copies without slots put on
+    the card (the fast ring's spare a copy of U), and extract_state returns
+    bitwise their `.float().cpu()`, before and after a run."""
+    sim = _staged_sim(dev, case, slot_bytes)
+    up, uc = _zero_rim_pair(sim.grid, 11)
+    state = sim.prepare_state(up, uc)
+    fast = isinstance(state, dict)
+    want = _unstaged(sim, (up, uc) if fast else (up, uc, uc))
+    assert _bitwise(_state_levels(state), want)
+    if fast:
+        assert _bitwise(state["sweep"][1], state["sweep"][0])
+    for _ in range(2):
+        out = sim.extract_state(state)
+        assert len(out) == len(want)
+        assert all(_same_bits(o, x.float().cpu().numpy()) for o, x in zip(out, _state_levels(state)))
+        state = sim.run(state, tt.ricker_table(GRAPH_STEPS, 1, 0.001))
+
+
+@pytest.mark.parametrize("case", ["fast_f32", "exact_bf16"])
+def test_back_to_back_prepares_take_no_stale_slot(dev, case):
+    """Two prepare_state calls back to back with other data, more chunks a
+    level than slots: each state holds its own levels."""
+    sim = _staged_sim(dev, case, SMALL_SLOTS)
+    st = sim.engine.staging
+    assert np.prod(sim.grid.padded_shape) > 2 * st.chunk * len(st.slots)
+    a, b = _zero_rim_pair(sim.grid, 12), _zero_rim_pair(sim.grid, 13)
+    first = sim.prepare_state(*a)
+    second = sim.prepare_state(*b)
+    levels = 2 if isinstance(first, dict) else 3
+    assert _bitwise(_state_levels(first), _unstaged(sim, (*a, a[1])[:levels]))
+    assert _bitwise(_state_levels(second), _unstaged(sim, (*b, b[1])[:levels]))
+
+
+@pytest.mark.parametrize("case", ["fast_f32", "exact_bf16"])
+def test_arrays_overwritten_after_prepare_do_not_reach_the_state(dev, case):
+    """prepare_state returns with transfers in flight, but no longer reads
+    the arrays passed: overwriting them at once changes nothing on the card."""
+    sim = _staged_sim(dev, case, SMALL_SLOTS)
+    up, uc = _zero_rim_pair(sim.grid, 14)
+    kept = (up.copy(), uc.copy())
+    state = sim.prepare_state(up, uc)
+    up.fill(np.nan)
+    uc.fill(np.nan)
+    levels = 2 if isinstance(state, dict) else 3
+    assert _bitwise(_state_levels(state), _unstaged(sim, (*kept, kept[1])[:levels]))
+
+
+@pytest.mark.parametrize("case", ["fast_f32", "fast_bf16", "exact_f32"])
+def test_extract_results_share_no_memory(dev, case):
+    """Two extract_state results are arrays of their own, apart from each
+    other and from the slots: staging other levels after leaves them as they
+    were."""
+    sim = _staged_sim(dev, case, SMALL_SLOTS)
+    state = sim.prepare_state(*_zero_rim_pair(sim.grid, 15))
+    one, two = sim.extract_state(state), sim.extract_state(state)
+    kept = [o.copy() for o in one]
+    arrays = list(one) + list(two)
+    slots = [s.view(torch.uint8).numpy() for s in sim.engine.staging.slots]
+    assert all(a.flags.owndata for a in arrays)
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(arrays) for b in arrays[i + 1:])
+    assert not any(np.shares_memory(a, s) for a in arrays for s in slots)
+    sim.extract_state(sim.prepare_state(*_zero_rim_pair(sim.grid, 16)))
+    assert all(_same_bits(o, k) for o, k in zip(one, kept))
+
+
+@pytest.mark.parametrize("case", list(STAGING_CASES))
+def test_staged_bytes_count_the_levels(dev, case):
+    """tracing.counts' staged_bytes is the levels' bytes in the storage
+    dtype, in and out, whatever the slots; the waits are counted where a
+    slot's transfer was not done."""
+    from tpufdtd_torch.utils import tracing
+
+    sim = _staged_sim(dev, case, SMALL_SLOTS)
+    up, uc = _zero_rim_pair(sim.grid, 17)
+    tracing.reset_counts()
+    state = sim.prepare_state(up, uc)
+    out = sim.extract_state(state)
+    level = up.size * sim.engine.dtype.itemsize
+    assert tracing.counts["staged_bytes"] == 2 * len(out) * level
+    assert set(tracing.counts) <= {"staged_bytes", "staging_waits"}
 
 
 @pytest.mark.parametrize("bad", ["spare_on_cpu", "spare_in_bf16", "target_on_cpu"])

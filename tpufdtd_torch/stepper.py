@@ -37,6 +37,9 @@ Engines:
   * TorchEngine ("torch"): the exact ring on the plain eager step.
   * CudaEngine ("cuda"): the exact ring on kernel A, the fast ring on
     kernel B.
+On a CUDA device a level crosses the host boundary through the engine's
+`Staging` slots, in chunks, so that host copies overlap the transfers;
+elsewhere it is one host copy and one `.to` or `.cpu()`.
 An engine's run_scan is the eager time loop, the counterpart of the JAX
 package's un-jitted run_scan and _run_sweep. On a CUDA device the "cuda"
 backend's Simulator runs that loop as one captured CUDA graph per span (the
@@ -48,9 +51,11 @@ The "torch" backend and CPU devices stay eager.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -77,6 +82,13 @@ from .utils import tracing
 K_AUTO = {1: 6, 2: 2, 3: 3, 4: 1}
 MODE_K = 2
 
+# Host staging of the levels that cross to and from a card (Staging): the
+# slots per engine and the bytes of each, one chunk of a level; among the
+# fastest both ways for 512^3 f32 levels on an H100, 128 MiB pinned
+# (harness/staging_probe.py; PERF.md).
+STAGING_SLOTS = 4
+STAGING_SLOT_BYTES = 32 << 20
+
 
 def resolve_device(device) -> torch.device:
     """torch.device(device), refusing a CUDA device when there is no card."""
@@ -88,11 +100,95 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _to_host(x: torch.Tensor) -> np.ndarray:
-    """A level as a host f32 array."""
-    x = x.float()
-    with tracing.span("d2h", x.nbytes if x.is_cuda else 0):
-        return x.cpu().numpy()
+class Staging:
+    """Host staging slots through which levels cross between host f32
+    arrays and `device`, one chunk of a slot at a time, so that the host
+    copy of a chunk overlaps the transfer of the chunks before it. The slots
+    hold the storage dtype (the cast to bf16 and the widening back are host
+    copies) and are reused from call to call, round the ring. On a CUDA
+    device they are pinned, each transfer is asynchronous on the device's
+    current stream (the stream a graph replays on) and each slot's event
+    marks the end of its last one: the host waits on it before it touches
+    the slot again. Elsewhere the slots are plain and every copy
+    synchronous. tracing.counts gets `staged_bytes`, the bytes moved through
+    the slots both ways, and `staging_waits`, the times the host found a
+    slot's transfer unfinished."""
+
+    def __init__(self, device, dtype: torch.dtype, slots: int = STAGING_SLOTS,
+                 slot_bytes: int = STAGING_SLOT_BYTES):
+        self.device, self.dtype = torch.device(device), dtype
+        cuda = self.device.type == "cuda"
+        self.chunk = slot_bytes // dtype.itemsize  # elements of a slot
+        self.slots = [torch.empty(self.chunk, dtype=dtype, pin_memory=cuda)
+                      for _ in range(slots)]
+        self.events = [torch.cuda.Event() if cuda else None for _ in range(slots)]
+        self._next = 0  # the slot the next chunk takes
+
+    def _wait(self, i: int) -> None:
+        ev = self.events[i]
+        if ev is not None and not ev.query():
+            tracing.counts["staging_waits"] += 1
+            ev.synchronize()
+
+    def _take(self) -> int:
+        """The next slot of the ring, once its last transfer has ended."""
+        i = self._next
+        self._next = (i + 1) % len(self.slots)
+        self._wait(i)
+        return i
+
+    def _sent(self, i: int) -> None:
+        if self.events[i] is not None:
+            self.events[i].record(torch.cuda.current_stream(self.device))
+
+    def _chunks(self, numel: int):
+        return ((a, min(self.chunk, numel - a)) for a in range(0, numel, self.chunk))
+
+    def to_device(self, src, dst: torch.Tensor) -> None:
+        """dst, a contiguous tensor on the device in the slots' dtype, <- the
+        host array src of its shape. Returns once every chunk is enqueued,
+        when src is no longer read."""
+        if tuple(np.shape(src)) != tuple(dst.shape) or dst.dtype != self.dtype:
+            raise ValueError(f"a host level of shape {np.shape(src)} into a {self.dtype} level"
+                             f" of {tuple(dst.shape)} in {dst.dtype}")
+        host = np.ascontiguousarray(src, np.float32)  # src itself where it is one
+        with warnings.catch_warnings():  # a read-only src: nothing writes to it
+            warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+            flat_src = torch.from_numpy(host).view(-1)
+        flat_dst = dst.view(-1)
+        for a, n in self._chunks(flat_dst.numel()):
+            i = self._take()
+            slot = self.slots[i][:n]
+            slot.copy_(flat_src[a:a + n])
+            flat_dst[a:a + n].copy_(slot, non_blocking=True)
+            self._sent(i)
+        tracing.counts["staged_bytes"] += dst.nbytes
+
+    def to_host(self, src: torch.Tensor) -> np.ndarray:
+        """The level src, on the device in the slots' dtype, as a fresh host
+        f32 array the caller owns: it views no slot."""
+        if src.dtype != self.dtype:
+            raise ValueError(f"a {src.dtype} level through {self.dtype} slots")
+        out = np.empty(src.shape, np.float32)
+        flat_src, flat_out = src.reshape(-1), torch.from_numpy(out).view(-1)
+        pending = collections.deque()  # (slot, start, length) of the chunks in flight
+
+        def drain():
+            i, a, n = pending.popleft()
+            self._wait(i)
+            flat_out[a:a + n].copy_(self.slots[i][:n])
+
+        for a, n in self._chunks(flat_src.numel()):
+            if len(pending) == len(self.slots):
+                drain()
+            i = self._take()
+            self.slots[i][:n].copy_(flat_src[a:a + n], non_blocking=True)
+            self._sent(i)
+            pending.append((i, a, n))
+        while pending:
+            drain()
+        tracing.counts["staged_bytes"] += src.nbytes
+        return out
 
 
 def _rims_identical(arrs, h: int) -> bool:
@@ -123,19 +219,50 @@ class _Engine:
         """An f32 host array on the device (the medium, w)."""
         return torch.tensor(np.asarray(a, np.float32), device=self.device)
 
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    @functools.cached_property
+    def staging(self) -> Staging:
+        """The card's staging slots, made at the first transfer."""
+        return Staging(self.device, self.dtype)
+
+    def load_level(self, u_ref, dst: torch.Tensor) -> None:
+        """dst, a level on the card in the storage dtype, <- the host level
+        u_ref through the staging slots (`h2d`, the host copies included)."""
+        with tracing.span("h2d", dst.nbytes):
+            self.staging.to_device(u_ref, dst)
+
     def level(self, u_ref) -> torch.Tensor:
-        """A host level on the device in the storage dtype: a host copy in
-        that dtype (`stage`), then its transfer (`h2d`)."""
+        """A host level on the device in the storage dtype: on a card through
+        the staging slots (load_level); elsewhere a host copy in that dtype
+        (`stage`), then its transfer (`h2d`)."""
+        if self.on_card:
+            dst = torch.empty(np.shape(u_ref), dtype=self.dtype, device=self.device)
+            self.load_level(u_ref, dst)
+            return dst
         with tracing.span("stage"):
             host = torch.tensor(np.asarray(u_ref, np.float32)).to(self.dtype)
-        with tracing.span("h2d", host.nbytes if self.device.type == "cuda" else 0):
+        with tracing.span("h2d", 0):
             return host.to(self.device)
+
+    def to_host(self, x: torch.Tensor) -> np.ndarray:
+        """A level as a host f32 array: from a card through the staging
+        slots, an array the caller owns (`d2h`, the host copies included);
+        elsewhere `.cpu()`."""
+        if self.on_card:
+            with tracing.span("d2h", x.nbytes):
+                return self.staging.to_host(x)
+        x = x.float()
+        with tracing.span("d2h", 0):
+            return x.cpu().numpy()
 
     def prepare_state(self, u_prev, u_cur, u_target):
         return (self.level(u_prev), self.level(u_cur), self.level(u_target))
 
     def extract_state(self, state):
-        return tuple(_to_host(x) for x in state)
+        return tuple(self.to_host(x) for x in state)
 
     @property
     def m_args(self) -> tuple:
@@ -277,6 +404,13 @@ class CudaEngine(_Engine):
             with tracing.span("rims"):
                 fast = _rims_identical([u_prev, u_cur, u_target], self.grid.halo)
             if fast:
+                if self.on_card:
+                    # each level straight into its half of U: no level apart from U
+                    U = torch.empty((2, *np.shape(u_prev)), dtype=self.dtype, device=self.device)
+                    for u, half in zip((u_prev, u_cur), U):
+                        self.load_level(u, half)
+                    with tracing.span("assemble"):
+                        return {"sweep": (U, U.clone())}
                 levels = [self.level(u_prev), self.level(u_cur)]
                 with tracing.span("assemble"):
                     U = torch.stack(levels)
@@ -295,7 +429,7 @@ class CudaEngine(_Engine):
     def extract_state(self, state):
         if isinstance(state, dict):
             U, _spare = state["sweep"]
-            return (_to_host(U[0]), _to_host(U[1]))
+            return (self.to_host(U[0]), self.to_host(U[1]))
         return super().extract_state(state)
 
     def _correct(self, U, s, kk: int):
@@ -388,7 +522,10 @@ class Simulator:
 
     def prepare_state(self, u_prev, u_cur, u_target=None):
         """Device state from host ICs; the third level defaults to a copy of
-        u_cur, which reproduces both reference IC setups."""
+        u_cur, which reproduces both reference IC setups. On a card the last
+        chunks may still be on their way when it returns, on the device's
+        current stream, which `run` replays on; the arrays passed are no
+        longer read by then."""
         ut = u_cur if u_target is None else u_target
         with tracing.span("prepare_state"):
             return self.engine.prepare_state(np.asarray(u_prev), np.asarray(u_cur),

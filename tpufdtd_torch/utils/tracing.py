@@ -12,8 +12,10 @@ and nsys/ncu recipes (SURVEY.md §5). Here:
   * `span(name, nbytes)`: the program's own range `tpufdtd_torch.<name>`
     around a host call (the reference's START/STOP macro pair,
     openacc.cpp:2-3), on the profiler's clock while one runs;
-  * `counts`: the process's graph `captures` and `evictions`, with
-    `reset_counts()`;
+  * `counts`: the process's graph `captures` and `evictions`, and the
+    bytes its levels moved through the card's staging slots
+    (`staged_bytes`) and the times a slot's transfer was not done when the
+    host came back to it (`staging_waits`), with `reset_counts()`;
   * `record`: the spans entered while a profiler ran, with the bytes each
     moved, for a reader that does not hold the profiler.
 """
