@@ -3,7 +3,10 @@ shot's wavelets, the pool of initial wavefields and the medium.
 
 Every draw comes from numpy's Generator seeded with (seed, stream, index),
 so the same seed gives the same inputs whatever else the run does; the
-large arrays are made on the device from a few drawn numbers.
+large arrays are made on the device from a few drawn numbers. A slab of
+them, the padded x planes [lo, hi) (`planes`), draws the same numbers and
+equals the whole array's planes bit for bit, so a grid over several cards
+is made one slab a card.
 """
 
 from __future__ import annotations
@@ -58,20 +61,23 @@ def wavelets(traffic: dict, dt: float, r: np.random.Generator) -> np.ndarray:
     return (amp[None, :] * (1.0 - 2.0 * a) * np.exp(-a)).astype(np.float32)
 
 
-def medium(config: dict, seed: int, device, pkg: Path = PKG):
+def medium(config: dict, seed: int, device, pkg: Path = PKG, planes=None):
     """The configuration's medium: a float (uniform) or a padded f32 tensor
-    on `device`, from <pkg>/media/<kind>.py."""
+    on `device`, the whole array or its padded x planes `planes` = (lo,
+    hi), from <pkg>/media/<kind>.py."""
     spec = config["medium"]
     gen = load(pkg / "media" / f"{spec['kind']}.py")
-    return gen.make(_n(config), config["order"], spec, rng(seed, MEDIUM), device)
+    return gen.make(_n(config), config["order"], spec, rng(seed, MEDIUM), device, planes)
 
 
-def initial_fields(config: dict, traffic: dict, seed: int, j: int, device, pkg: Path = PKG):
+def initial_fields(config: dict, traffic: dict, seed: int, j: int, device, pkg: Path = PKG,
+                   planes=None):
     """Pool entry j of the traffic's initial wavefields: padded f32 tensors
-    (u_prev, u_cur) on `device`, from <pkg>/ics/<kind>.py."""
+    (u_prev, u_cur) on `device`, the whole arrays or their padded x planes
+    `planes` = (lo, hi), from <pkg>/ics/<kind>.py."""
     spec = traffic["ic"]
     gen = load(pkg / "ics" / f"{spec['kind']}.py")
-    return gen.make(_n(config), config["order"], spec, rng(seed, IC, j), device)
+    return gen.make(_n(config), config["order"], spec, rng(seed, IC, j), device, planes)
 
 
 def _n(config: dict) -> tuple:

@@ -1,5 +1,5 @@
-"""A uniform medium: m = params["m"] everywhere."""
+"""A uniform medium: m = params["m"] everywhere, whatever `planes` asks for."""
 
 
-def make(n, halo, params, rng, device):
+def make(n, halo, params, rng, device, planes=None):
     return float(params["m"])

@@ -6,7 +6,8 @@ from the root of a checkout. Prints progress and the numbers compared on
 standard error and, as the last line of standard output, the result: with
 --trace 0 the cell's end-to-end metrics, with --trace 1 its per-layer ones.
 Exits non-zero, printing no result, without the CUDA cards the cell asks
-for, or when a module of JAX or of the JAX package has been loaded.
+for, when the cell's host arrays would not fit in the host's MemAvailable,
+or when a module of JAX or of the JAX package has been loaded.
 """
 
 import time
@@ -38,7 +39,11 @@ def main(argv=None) -> int:
                     f" torch.cuda.is_available() is {torch.cuda.is_available()},"
                     f" {have} card(s)")
         return 2
-    result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", T0)
+    try:
+        result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", T0)
+    except harness.HostMemoryError as e:
+        harness.log(str(e))
+        return 4
     loaded = harness.forbidden_modules()
     if loaded:
         harness.log(f"modules of JAX or the JAX package were loaded: {loaded}")

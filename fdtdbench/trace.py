@@ -2,8 +2,9 @@
 
 The traced run profiles whole shots of the window with torch.profiler, in
 memory, and keeps from it two lists on the profiler's clock (microseconds):
-the device's intervals (kernels, copies, memsets) and the benchmark's own
-host spans around each call into the program. `Readings` carries them,
+the device's intervals (kernels, copies, memsets), each with the card it
+ran on, and the benchmark's own host spans around each call into the
+program. `Readings` carries them,
 with the window's per-shot records and the cell's shapes, to the readers in
 fdtdbench/metrics/.
 """
@@ -33,6 +34,7 @@ class Shot:
     graph_steps: Optional[int] = None
     prepare_s: Optional[float] = None
     extract_s: Optional[float] = None
+    run_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -49,6 +51,8 @@ class Readings:
     device: List[Tuple[str, float, float]] = dataclasses.field(default_factory=list)
     spans: List[Tuple[str, int, float, float]] = dataclasses.field(default_factory=list)
     launches: Optional[int] = None  # stencil launches counted over the traced shots
+    # the card (device index) of each interval of `device`, in its order
+    cards: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def traced_steps(self) -> int:
@@ -93,12 +97,15 @@ def union(intervals, lo: float = float("-inf"), hi: float = float("inf")) -> lis
     return [tuple(x) for x in out]
 
 
-def busy_us(readings: Readings) -> Optional[float]:
-    """Microseconds of the traced window in which the device ran anything."""
+def busy_us(readings: Readings, card: Optional[int] = None) -> Optional[float]:
+    """Microseconds of the traced window in which the device ran anything:
+    any card, or the card `card` alone (None where it ran nothing)."""
     win = readings.window_us
-    if win is None or not readings.device:
+    device = readings.device if card is None else [
+        iv for iv, c in zip(readings.device, readings.cards) if c == card]
+    if win is None or not device:
         return None
-    return sum(b - a for a, b in union([(a, b) for _n, a, b in readings.device], *win))
+    return sum(b - a for a, b in union([(a, b) for _n, a, b in device], *win))
 
 
 def short_name(name: str) -> str:
@@ -138,10 +145,11 @@ def _label(readings: Readings, t: float, captured: set) -> str:
 
 
 def from_profiler(prof) -> tuple:
-    """(device intervals, host spans) of a torch.profiler run."""
+    """(device intervals, host spans, the card of each device interval) of
+    a torch.profiler run."""
     import torch
 
-    device, spans = [], []
+    device, spans, cards = [], [], []
     for e in prof.events():
         a, b = e.time_range.start, e.time_range.end
         if e.name.startswith(SPAN + "."):
@@ -153,4 +161,5 @@ def from_profiler(prof) -> tuple:
             spans.append((kind, int(shot), a, b))
         elif e.device_type == torch.autograd.DeviceType.CUDA:
             device.append((e.name, a, b))
-    return device, spans
+            cards.append(e.device_index)
+    return device, spans, cards
