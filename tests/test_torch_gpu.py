@@ -251,6 +251,68 @@ def test_kernel_a_one_block_per_sm_matches_plain(dev, radius):
         _check_a(dev, g, dtype, radius % 2 == 0, tile=tile)
 
 
+@pytest.mark.parametrize("shape", [(187, 40, 801), (187, 801, 801)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_a_overthrust_rows_match_plain(dev, shape, dtype):
+    """The SEG/EAGE Overthrust deployment's extents at order 8 with a
+    per-point m: padded rows of 817 elements, not a multiple of 16 bytes
+    (4-byte copies in f32, plain ones in bf16), an odd nx and ny."""
+    g = tt.Grid3D(*shape, order=8)
+    assert (g.nz + 2 * g.halo) * 4 % 16 != 0
+    _check_a(dev, g, dtype, per_point=True)
+
+
+def _smooth_pair(g, seed):
+    """(u_prev, u_cur) with zero rims: a few products of sines of 8-32 cells
+    over the interior, u_prev a little off u_cur, so the field moves."""
+    rng = np.random.default_rng(seed)
+    axes = [np.arange(n) + 0.5 for n in (g.nx, g.ny, g.nz)]
+    out = []
+    for _ in range(2):
+        u = np.zeros((g.nx, g.ny, g.nz))
+        for _term in range(4):
+            s = [np.sin(2 * np.pi * a / rng.uniform(8, 32) + rng.uniform(0, 2 * np.pi))
+                 for a in axes]
+            u += rng.uniform(-1, 1) * s[0][:, None, None] * s[1][None, :, None] * s[2]
+        out.append(u)
+    h = g.halo
+    levels = [np.zeros(g.padded_shape, np.float32) for _ in range(2)]
+    levels[1][h:-h, h:-h, h:-h] = 1e-3 * out[0]
+    levels[0][h:-h, h:-h, h:-h] = 1e-3 * (out[0] - 1e-3 * out[1])
+    return levels
+
+
+# F7's two places (h, dt, the scale of media.layered's m 1.0-2.5): the old
+# 512^3 layered cell's (c dt / h 0.004-0.01, where the drift was read) and
+# the Overthrust's (m 0.028-0.07, 3.8-6.2 km/s at h = 25 m, c dt / h <= 0.37)
+F7_PLACES = {"layered512": (0.1, 1e-3, 1.0), "overthrust": (0.025, 1.5e-3, 0.0278)}
+
+
+@pytest.mark.parametrize("place", sorted(F7_PLACES))
+def test_kernel_a_order8_drift_within_three_times_plain(dev, place):
+    """F7: over 1000 steps at order 8 with a layered m, kernel A on the
+    exact ring ends at most 3 times as far from an f64 truth as the plain f32
+    form of the same arithmetic (its plain version, eager on the card): the
+    drift is the oracle's update form's, whose rounding both share, not the
+    kernel's."""
+    h, dt, scale = F7_PLACES[place]
+    n, steps = 64, 1000
+    g = tt.Grid3D(n, n, n, hx=h, hy=h, hz=h, order=8)
+    m = (media.layered(g) * np.float32(scale)).astype(np.float32)
+    coords = tt.default_source_coords(1, n, n, n, h=h)
+    src = tt.ricker_table(steps, 1, dt)
+    u_prev, u_cur = _smooth_pair(g, 19)
+    truth = tt.truth_run_ring(u_prev, u_cur, m, g, dt, steps, src, coords, device=dev)[1]
+    errs = {}
+    for backend in ("cuda", "torch"):
+        sim = tt.Simulator(g, tt.SimConfig(dt=dt, nsteps=steps, backend=backend), m, coords,
+                           device=dev)
+        assert not getattr(sim.engine, "sweep_k", 0)
+        u = sim.extract_state(sim.run(sim.prepare_state(u_prev, u_cur), src))[1]
+        errs[backend] = float(np.linalg.norm(u - truth) / np.linalg.norm(truth))
+    assert errs["cuda"] <= 3 * errs["torch"], errs
+
+
 def test_step_smem_and_policy_are_what_the_launch_requests(dev):
     """ops/stencil_step.smem_bytes states the launch's own expression, and
     cells_per_thread and blocks_per_sm the kernel's register policy, for
@@ -897,6 +959,34 @@ def test_graph_cache_stays_bounded(dev):
     assert len(sim.graphs) == GRAPH_CACHE
 
 
+@pytest.mark.parametrize("order,layered", [(8, True), (4, False)])
+def test_back_to_back_shots_stop_capturing(dev, order, layered):
+    """Shots as a caller runs them, each state prepared while the last is
+    still held, then run and extracted: the states take turns on the
+    allocator's cached blocks, so after a few captures every shot replays.
+    A capture must not hand the dropped state's blocks back to the card
+    (torch.cuda.graph's emptying of the cache did: each next state got new
+    addresses and every shot captured again). Both rings, on levels large
+    enough to take segments of their own."""
+    from tpufdtd_torch.utils import tracing
+
+    n = 128
+    g = tt.Grid3D(n, n, n, order=order)
+    m = media.layered(g) if layered else np.full(g.padded_shape, 1.5, np.float32)
+    sim = tt.Simulator(g, tt.SimConfig(dt=0.001, nsteps=6), m,
+                       tt.default_source_coords(1, n, n, n), device=dev)
+    assert bool(sim.engine.sweep_k) == (not layered)
+    levels, src = _zero_rim_pair(g, 3), tt.ricker_table(6, 1, 0.001)
+    state, captured = None, []
+    for _shot in range(8):
+        before = tracing.counts["captures"]
+        state = sim.prepare_state(*levels)
+        state = sim.run(state, src)
+        sim.extract_state(state)
+        captured.append(tracing.counts["captures"] - before)
+    assert sum(captured[:4]) <= 4 and captured[4:] == [0] * 4, captured
+
+
 def test_program_spans_stay_off_the_device_timeline(dev):
     """Traced with CUDA activity, a shot's ranges are host events only: no
     annotation on the device's timeline, which a reader of device intervals
@@ -1089,13 +1179,13 @@ def test_capture_records_on_the_simulators_card(dev, monkeypatch):
     torch.cuda.graph's shared default stream, made on whichever card was
     current first), and its recorded graph holds a kernel node at least for
     every launch counted; device="cuda" names the current card."""
-    streams, real = [], torch.cuda.graph
+    streams, real = [], graphs.recording
 
-    def spy(graph, **kw):
-        streams.append(kw.get("stream"))
-        return real(graph, **kw)
+    def spy(graph, stream):
+        streams.append(stream)
+        return real(graph, stream)
 
-    monkeypatch.setattr(torch.cuda, "graph", spy)
+    monkeypatch.setattr(graphs, "recording", spy)
     sim, state = _graph_sim(dev)
     sim.run(state, tt.ricker_table(GRAPH_STEPS, 1, 0.001), GRAPH_STEPS)
     assert len(streams) == 1 and streams[0] is not None and streams[0].device == sim.device

@@ -6,11 +6,16 @@ at 2e-6 and against the JAX package's Simulator(backend="pallas") on the
 same inputs, which runs its sweep with the w stream.
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
+import torch
 
 import tpufdtd as tf
 import tpufdtd_torch as tt
+from tpufdtd_torch.stepper import CudaEngine, make_engine
 from tpufdtd_torch.harness import media
 from conftest import rel_l2
 
@@ -100,3 +105,36 @@ def test_layered_medium():
     deep = m[h:-h, -h - 1, h]  # at the far y edge each interface is ~10 % of nx deeper
     layer_deep = np.searchsorted(np.array(media.LAYER_M) * (1 + media.PERTURB), deep)
     assert list(np.flatnonzero(np.diff(layer_deep)) + 1) == [12, 20, 28, 36]
+
+
+OVERTHRUST = Path(__file__).resolve().parents[1] / "fdtdbench" / "configs" / "overthrust-o8.json"
+
+
+@pytest.mark.parametrize("shape", [(11, 25, 27), (19, 9, 33)])
+def test_overthrust_configuration_takes_the_exact_ring_on_kernel_a(shape):
+    """The SEG/EAGE Overthrust deployment (the benchmark's overthrust-o8:
+    order 8, f32, its layered stand-in for the velocity model, h = 25 m, dt =
+    1.5 ms) at odd shapes that are no cube: SimConfig's defaults take it to
+    the exact ring on kernel A with the per-point m (R = 4 with a
+    heterogeneous m is no fast-ring mode), whose steps hold to the f64
+    oracle with a source."""
+    from fdtdbench import inputs
+
+    conf = json.loads(OVERTHRUST.read_text())
+    conf.update(nx=shape[0], ny=shape[1], nz=shape[2])
+    h, dt, order, steps = conf["h"], conf["dt"], conf["order"], 24
+    g = tt.Grid3D(*shape, hx=h, hy=h, hz=h, order=order)
+    m = inputs.medium(conf, 2**31 + 3, "cpu").numpy()
+    assert m.shape == g.padded_shape and m.min() < m.max()
+    coords = inputs.lattice_coords(1, shape, h)
+    cfg = tt.SimConfig(dt=dt, nsteps=steps, storage_dtype=conf["storage_dtype"])
+    eng = make_engine(g, cfg, m, coords, device="cpu")
+    assert isinstance(eng, CudaEngine) and eng.sweep_k == 0 and not eng.cubes
+    assert eng.m_val is None and eng.w is None and torch.equal(eng.m, torch.from_numpy(m))
+    up, uc = _fast_ic(g, 5)
+    src = tt.ricker_table(steps, 1, dt)
+    sim = tt.Simulator(g, cfg, m, coords, device="cpu")
+    assert sim.engine.sweep_k == 0
+    p, c, t = _run(sim, up, uc, src, steps)
+    tp, tc, tt_ = tt.oracle_run_ring(up, uc, m, g, dt, steps, src, coords, dtype=np.float64)
+    assert rel_l2(c, tc) < TOL and rel_l2(p, tp) < TOL and rel_l2(t, tt_) < TOL

@@ -138,3 +138,31 @@ def test_graph_cache_counts_captures_replays_and_evictions(monkeypatch):
     assert [r[0] for r in tracing.record] == ["replay"]
     assert [e.name for e in prof.events() if e.name.startswith(tracing.PREFIX)] == [
         "tpufdtd_torch.replay"]
+
+
+@pytest.mark.parametrize("backend, layered", [("cuda", True), ("cuda", False), ("torch", True)])
+def test_the_medium_span_and_counters(backend, layered):
+    """An engine's medium: a per-point medium's upload goes in one top-level
+    `medium` span with the bytes placed on the device (none for a uniform
+    medium, which the steps take as a scalar), and the bytes and the host
+    time of the uniformity scan and the upload in counts' `medium_bytes` and
+    `medium_ns` whether a profiler runs or not. Without a profiler no range
+    opens and nothing is recorded."""
+    g = tt.Grid3D(12, 16, 20, hx=1.0, hy=1.0, hz=1.0, order=8)
+    m = np.full(g.padded_shape, 1.5, np.float32)
+    if layered:
+        m[: g.padded_shape[0] // 2] = 2.0
+    cfg = tt.SimConfig(dt=0.001, nsteps=4, backend=backend)
+    placed = m.nbytes if layered or backend == "torch" else 0
+    tracing.reset_counts()
+    tt.Simulator(g, cfg, m, device="cpu")
+    assert tracing.record == [] and tracing.counts["medium_bytes"] == placed
+    assert tracing.counts["medium_ns"] > 0
+    tracing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim = tt.Simulator(g, cfg, m, device="cpu")
+    ranges = [e for e in prof.events() if e.name.startswith(tracing.PREFIX + ".")]
+    assert [e.name for e in ranges] == [tracing.PREFIX + ".medium"]
+    assert [(r[0], r[3]) for r in tracing.record] == [("medium", placed)]
+    assert tracing.counts["medium_bytes"] == placed and tracing.counts["medium_ns"] > 0
+    assert (sim.engine.m is None) == (placed == 0)

@@ -132,6 +132,22 @@ def span_key(kind, n: int, rows, state, reads=None) -> tuple:
     return key if reads is None else key + (_described(reads),)
 
 
+@contextlib.contextmanager
+def recording(graph, stream):
+    """torch.cuda.graph(graph, stream=stream) without its emptying of the
+    caching allocator: that handed the blocks of the state a caller had just
+    dropped back to the card, so the next state got new addresses, whose
+    span was captured again, shot after shot. As torch.cuda.graph does, it
+    waits for the card, then records on `stream` into a private pool."""
+    torch.cuda.synchronize(stream.device)
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            yield
+        finally:
+            graph.capture_end()
+
+
 class Graph:
     """One span of an eager loop, captured as a CUDA graph.
 
@@ -213,7 +229,7 @@ class Graphs(collections.OrderedDict):
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.perf_counter()
             with counts_kept() as before:  # the capture launched nothing
-                with torch.no_grad(), torch.cuda.graph(graph, stream=self._stream):
+                with torch.no_grad(), recording(graph, self._stream):
                     out = enqueue(src)
                 deltas = [c - b for c, b in zip(counters(), before)]
             nodes, kernels = graph_nodes(graph)

@@ -89,6 +89,11 @@ MODE_K = 2
 STAGING_SLOTS = 4
 STAGING_SLOT_BYTES = 32 << 20
 
+# Elements between the starts of the exact ring's levels in their shared
+# block on a card: every level starts 128-byte aligned (kernel A's copies
+# and stores take their width from the pointers' alignment).
+LEVEL_ALIGN = 64
+
 
 def resolve_device(device) -> torch.device:
     """torch.device(device), refusing a CUDA device when there is no card."""
@@ -219,6 +224,23 @@ class _Engine:
         """An f32 host array on the device (the medium, w)."""
         return torch.tensor(np.asarray(a, np.float32), device=self.device)
 
+    def medium(self, uniform: Optional[bool]):
+        """(m_val, m): the medium as the steps take it, the scalar m_ref
+        holds everywhere and None where `uniform`, else None and m_ref on the
+        device; `uniform` None scans m_ref for it. The upload is one `medium`
+        span, with the bytes placed on the device (none for a uniform m);
+        tracing.counts gets them as `medium_bytes` and the host nanoseconds
+        the scan and the upload took as `medium_ns`, traced or not."""
+        t0 = time.perf_counter_ns()
+        if uniform is None:
+            uniform = bool(np.all(self.m_ref == self.m_ref.flat[0]))
+        nbytes = 0 if uniform else self.m_ref.size * 4  # f32 on the device
+        with tracing.span("medium", nbytes):
+            m = None if uniform else self.field(self.m_ref)
+        tracing.counts["medium_bytes"] += nbytes
+        tracing.counts["medium_ns"] += time.perf_counter_ns() - t0
+        return (float(self.m_ref.flat[0]) if uniform else None), m
+
     @property
     def on_card(self) -> bool:
         return self.device.type == "cuda"
@@ -228,20 +250,17 @@ class _Engine:
         """The card's staging slots, made at the first transfer."""
         return Staging(self.device, self.dtype)
 
-    def load_level(self, u_ref, dst: torch.Tensor) -> None:
-        """dst, a level on the card in the storage dtype, <- the host level
-        u_ref through the staging slots (`h2d`, the host copies included)."""
-        with tracing.span("h2d", dst.nbytes):
-            self.staging.to_device(u_ref, dst)
+    def load(self, levels, dsts) -> None:
+        """Host levels into their tensors on the card, in the storage dtype,
+        through the staging slots (an `h2d` span a level, the host copies
+        included)."""
+        for u, dst in zip(levels, dsts):
+            with tracing.span("h2d", dst.nbytes):
+                self.staging.to_device(u, dst)
 
     def level(self, u_ref) -> torch.Tensor:
-        """A host level on the device in the storage dtype: on a card through
-        the staging slots (load_level); elsewhere a host copy in that dtype
-        (`stage`), then its transfer (`h2d`)."""
-        if self.on_card:
-            dst = torch.empty(np.shape(u_ref), dtype=self.dtype, device=self.device)
-            self.load_level(u_ref, dst)
-            return dst
+        """A host level on a device that is no card, in the storage dtype: a
+        host copy in that dtype (`stage`), then its transfer (`h2d`)."""
         with tracing.span("stage"):
             host = torch.tensor(np.asarray(u_ref, np.float32)).to(self.dtype)
         with tracing.span("h2d", 0):
@@ -259,7 +278,21 @@ class _Engine:
             return x.cpu().numpy()
 
     def prepare_state(self, u_prev, u_cur, u_target):
-        return (self.level(u_prev), self.level(u_cur), self.level(u_target))
+        levels = (u_prev, u_cur, u_target)
+        if not self.on_card:
+            return tuple(self.level(u) for u in levels)
+        # on a card the three levels share one block of the allocator, each
+        # starting LEVEL_ALIGN elements apart: the states a caller prepares
+        # while it still holds the last one take turns on two blocks, and
+        # the graphs' keys with them (as three blocks, a state's levels came
+        # back from the allocator's cache in another order and captured anew)
+        shape = np.shape(u_cur)
+        n = int(np.prod(shape))
+        step = -(-n // LEVEL_ALIGN) * LEVEL_ALIGN
+        flat = torch.empty(3 * step, dtype=self.dtype, device=self.device)
+        ring = tuple(flat[i * step: i * step + n].view(shape) for i in range(3))
+        self.load(levels, ring)
+        return ring
 
     def extract_state(self, state):
         return tuple(self.to_host(x) for x in state)
@@ -279,7 +312,7 @@ class TorchEngine(_Engine):
 
     def __init__(self, grid, cfg, m_ref, coords, device):
         super().__init__(grid, cfg, m_ref, coords, device)
-        self.m = self.field(self.m_ref)
+        self.m = self.medium(uniform=False)[1]
 
     def step(self, C, P, T, m_args):
         return stencil_torch.leapfrog_step(C, P, m_args[0], T, grid=self.grid, dt=self.cfg.dt)
@@ -291,11 +324,7 @@ class CudaEngine(_Engine):
 
     def __init__(self, grid, cfg, m_ref, coords, device):
         super().__init__(grid, cfg, m_ref, coords, device)
-        uniform = cfg.assume_uniform_m
-        if uniform is None:
-            uniform = bool(np.all(self.m_ref == self.m_ref.flat[0]))
-        self.m_val = float(self.m_ref.flat[0]) if uniform else None
-        self.m = None if uniform else self.field(self.m_ref)
+        self.m_val, self.m = self.medium(cfg.assume_uniform_m)
         self.w = None  # kernel B's per-point w stream, when the fast ring has one
         self.sweep_k = 0
         self.cubes = {}
@@ -407,8 +436,7 @@ class CudaEngine(_Engine):
                 if self.on_card:
                     # each level straight into its half of U: no level apart from U
                     U = torch.empty((2, *np.shape(u_prev)), dtype=self.dtype, device=self.device)
-                    for u, half in zip((u_prev, u_cur), U):
-                        self.load_level(u, half)
+                    self.load((u_prev, u_cur), U)
                     with tracing.span("assemble"):
                         return {"sweep": (U, U.clone())}
                 levels = [self.level(u_prev), self.level(u_cur)]
