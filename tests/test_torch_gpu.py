@@ -1021,7 +1021,8 @@ def test_program_spans_stay_off_the_device_timeline(dev):
     # both spans were captured before the trace; the four levels went through the slots
     assert not tracing.counts["captures"] and not tracing.counts["evictions"]
     assert tracing.counts["staged_bytes"] == 4 * level
-    assert set(tracing.counts) <= {"captures", "evictions", "staged_bytes", "staging_waits"}
+    assert set(tracing.counts) <= {"captures", "evictions", "staged_bytes", "staging_waits",
+                                   *RESIDENT}
 
 
 STAGING_CASES = {  # name -> (order, storage, ring, backend): both rings, f32 and bf16
@@ -1032,6 +1033,7 @@ STAGING_CASES = {  # name -> (order, storage, ring, backend): both rings, f32 an
     "torch_f32": (4, "float32", "exact", "torch"),
 }
 SMALL_SLOTS = 96 << 10  # 16 chunks of a 72^3 f32 level, over 2 slots
+RESIDENT = ("resident_levels", "resident_waits", "fresh_levels")  # one a level extracted
 
 
 def _staged_sim(dev, case, slot_bytes=None):
@@ -1117,20 +1119,24 @@ def test_arrays_overwritten_after_prepare_do_not_reach_the_state(dev, case):
 
 @pytest.mark.parametrize("case", ["fast_f32", "fast_bf16", "exact_f32"])
 def test_extract_results_share_no_memory(dev, case):
-    """Two extract_state results are arrays of their own, apart from each
-    other and from the slots: staging other levels after leaves them as they
-    were."""
+    """Two extract_state results of one shot (the first into the arrays made
+    ahead, the second into fresh ones) and the result of a second prepared
+    shot are arrays of their own, apart from each other and from the slots:
+    staging other levels after leaves them as they were."""
     sim = _staged_sim(dev, case, SMALL_SLOTS)
     state = sim.prepare_state(*_zero_rim_pair(sim.grid, 15))
     one, two = sim.extract_state(state), sim.extract_state(state)
     kept = [o.copy() for o in one]
-    arrays = list(one) + list(two)
+    shot2 = sim.extract_state(sim.prepare_state(*_zero_rim_pair(sim.grid, 16)))
+    kept2 = [o.copy() for o in shot2]
+    arrays = list(one) + list(two) + list(shot2)
     slots = [s.view(torch.uint8).numpy() for s in sim.engine.staging.slots]
-    assert all(a.flags.owndata for a in arrays)
+    assert all(a.flags.owndata and a.flags.writeable for a in arrays)
     assert not any(np.shares_memory(a, b) for i, a in enumerate(arrays) for b in arrays[i + 1:])
     assert not any(np.shares_memory(a, s) for a in arrays for s in slots)
-    sim.extract_state(sim.prepare_state(*_zero_rim_pair(sim.grid, 16)))
+    sim.extract_state(sim.prepare_state(*_zero_rim_pair(sim.grid, 17)))
     assert all(_same_bits(o, k) for o, k in zip(one, kept))
+    assert all(_same_bits(o, k) for o, k in zip(shot2, kept2))
 
 
 @pytest.mark.parametrize("case", list(STAGING_CASES))
@@ -1147,7 +1153,10 @@ def test_staged_bytes_count_the_levels(dev, case):
     out = sim.extract_state(state)
     level = up.size * sim.engine.dtype.itemsize
     assert tracing.counts["staged_bytes"] == 2 * len(out) * level
-    assert set(tracing.counts) <= {"staged_bytes", "staging_waits"}
+    assert set(tracing.counts) <= {"staged_bytes", "staging_waits", *RESIDENT}
+    # every level extracted went into the array made ahead for it
+    assert sum(tracing.counts[k] for k in RESIDENT) == len(out)
+    assert not tracing.counts["fresh_levels"]
 
 
 @pytest.mark.parametrize("bad", ["spare_on_cpu", "spare_in_bf16", "target_on_cpu"])

@@ -74,6 +74,35 @@ def test_device_to_host_is_the_unstaged_copy_bitwise(kind, storage):
     assert tracing.counts == Counter(staged_bytes=src.nbytes)
 
 
+@pytest.mark.parametrize("kind", ["below", "equal", "ragged"])
+@pytest.mark.parametrize("storage", sorted(DTYPES))
+def test_device_to_host_into_a_given_array_is_the_fresh_copy_bitwise(kind, storage):
+    """to_host(src, out=a) fills a, whatever it held, with bitwise what
+    to_host(src) returns, and returns a itself."""
+    dtype = DTYPES[storage]
+    st = _staging(dtype)
+    src = torch.tensor(_level(_shape(kind, st.chunk), seed=9)).to(dtype)
+    want = st.to_host(src)
+    out = np.full(src.shape, np.nan, np.float32)
+    tracing.reset_counts()
+    assert st.to_host(src, out=out) is out
+    assert _bits(out) == _bits(want)
+    assert tracing.counts == Counter(staged_bytes=src.nbytes)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided", "read_only"])
+def test_a_host_array_the_level_cannot_go_into_is_refused(bad):
+    st = _staging(torch.float32)
+    shape = _shape("ragged", st.chunk)
+    out = {"shape": lambda: np.empty((1, 2, shape[2]), np.float32),
+           "dtype": lambda: np.empty(shape, np.float64),
+           "strided": lambda: np.empty((*shape[:2], 2 * shape[2]), np.float32)[..., ::2],
+           "read_only": lambda: np.empty(shape, np.float32)}[bad]()
+    out.flags.writeable = bad != "read_only"
+    with pytest.raises(ValueError):
+        st.to_host(torch.zeros(shape), out=out)
+
+
 @pytest.mark.parametrize("storage", sorted(DTYPES))
 def test_returned_array_views_no_slot(storage):
     """Overwriting every slot, and staging another level, after to_host

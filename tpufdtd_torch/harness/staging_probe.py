@@ -12,14 +12,24 @@ their GB/s, and the waits a level (tracing.counts' staging_waits); then the
 copies without slots (a host copy and a pageable `.to`, a pageable
 `.cpu()`), a pinned buffer of the whole level each way (the link's rate)
 and a host copy of the whole level from pinned memory into fresh and into
-warm pages. Each level returned by `to_host` is a fresh array, as
-extract_state's are.
+warm pages. Each level returned by `to_host` in those rows is a fresh
+array.
+
+Then, through the engine's own slots (STAGING_SLOTS x STAGING_SLOT_BYTES),
+the arrays a stepper.Resident makes ahead, with each way of faulting their
+pages in (TOUCHES: on the helper thread alone, or spread over torch's
+intra-op threads): the ms a level takes the helper; `to_host` into its
+array once the helper is done, and at once after `expect` (the wait
+included); `to_device` of two levels while the helper makes two, against
+`to_device` alone; and a short shot's host side (two levels in, 40 ms of a
+card's run, two levels out) with the arrays made ahead and with fresh ones.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import mmap
 import statistics
 import subprocess
 import time
@@ -28,8 +38,20 @@ import numpy as np
 import torch
 
 from .. import Grid3D
-from ..stepper import Staging
+from ..stepper import STAGING_SLOT_BYTES, STAGING_SLOTS, Resident, Staging
 from ..utils import tracing
+
+
+def _touch_intra_op(a: np.ndarray) -> None:
+    """One element a page written by torch, over its intra-op threads: the
+    alternative to Resident.touch, which writes them on the helper alone."""
+    flat = torch.from_numpy(a).view(-1)
+    flat[:: mmap.PAGESIZE // a.itemsize].zero_()
+    flat[-1:].zero_()
+
+
+# the ways a Resident's helper may fault in its arrays' pages
+TOUCHES = {"helper": Resident.touch, "intra_op": _touch_intra_op}
 
 
 def _timed(fn, repeat: int) -> float:
@@ -121,12 +143,74 @@ def main(argv=None) -> int:
     }
     for k, v in bare.items():
         print(f"{k} {v:.2f}", flush=True)
+    del pinned, warm
+    ahead = _made_ahead(dev, shape, u, dst, args.repeat)
+    for k, v in ahead.items():
+        print(f"{k} {v:.2f}", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__,
                        "threads": torch.get_num_threads(), "level_bytes": nbytes,
-                       "settings": rows, "bare": bare}, f, indent=1)
+                       "settings": rows, "bare": bare, "made_ahead": ahead}, f, indent=1)
     return 0
+
+
+def _made_ahead(dev, shape, u, dst, repeat: int) -> dict:
+    """The Resident rows (the module's docstring), in ms, for each TOUCHES."""
+    st = Staging(dev, torch.float32, STAGING_SLOTS, STAGING_SLOT_BYTES)
+    dst2 = torch.empty_like(dst)
+
+    def put():
+        st.to_device(u, dst)
+        st.to_device(u, dst2)
+        torch.cuda.synchronize(dev)
+
+    def shot(r):
+        if r is not None:
+            r.expect(shape, 2)
+        put()
+        time.sleep(0.04)  # the card's run, which the helper overlaps
+        for x in (dst, dst2):
+            st.to_host(x, out=None if r is None else r.take(shape))
+
+    out = {"to_device_2_levels_alone_ms": _timed(put, repeat) * 1e3,
+           "short_shot_fresh_ms": _timed(lambda: shot(None), repeat) * 1e3}
+    for name, touch in TOUCHES.items():
+        r = type(f"Resident_{name}", (Resident,), {"touch": staticmethod(touch)})()
+
+        def made():
+            r.expect(shape, 1)
+            r._set.ready[0].wait()
+            return r.take(shape)
+
+        def ready_then_to_host():
+            a = made()
+            t0 = time.perf_counter()
+            st.to_host(dst, out=a)
+            return time.perf_counter() - t0
+
+        def put_while_making():
+            r.expect(shape, 2)
+            t0 = time.perf_counter()
+            put()
+            secs = time.perf_counter() - t0
+            r.take(shape), r.take(shape)  # waits for the helper: the next row starts idle
+            return secs
+
+        def median(fn):
+            fn()
+            return statistics.median(fn() for _ in range(repeat)) * 1e3
+
+        out[f"{name}_fault_in_level_ms"] = _timed(made, repeat) * 1e3
+        out[f"{name}_to_host_ready_ms"] = median(ready_then_to_host)
+        out[f"{name}_to_host_unfinished_ms"] = _timed(
+            lambda: (r.expect(shape, 1), st.to_host(dst, out=r.take(shape))), repeat) * 1e3
+        out[f"{name}_to_device_2_levels_while_making_ms"] = median(put_while_making)
+        out[f"{name}_short_shot_ms"] = _timed(lambda: shot(r), repeat) * 1e3
+        if not np.array_equal(st.to_host(dst, out=made()), u):
+            raise RuntimeError(f"{name}: the level came back changed")
+        del r
+    return out
 
 
 if __name__ == "__main__":

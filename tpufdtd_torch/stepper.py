@@ -38,7 +38,8 @@ Engines:
   * CudaEngine ("cuda"): the exact ring on kernel A, the fast ring on
     kernel B.
 On a CUDA device a level crosses the host boundary through the engine's
-`Staging` slots, in chunks, so that host copies overlap the transfers;
+`Staging` slots, in chunks, so that host copies overlap the transfers, and
+comes back into a host array its `Resident` made ahead of the extraction;
 elsewhere it is one host copy and one `.to` or `.cpu()`.
 An engine's run_scan is the eager time loop, the counterpart of the JAX
 package's un-jitted run_scan and _run_sweep. On a CUDA device the "cuda"
@@ -54,8 +55,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import mmap
+import queue
+import threading
 import time
 import warnings
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -169,12 +174,20 @@ class Staging:
             self._sent(i)
         tracing.counts["staged_bytes"] += dst.nbytes
 
-    def to_host(self, src: torch.Tensor) -> np.ndarray:
-        """The level src, on the device in the slots' dtype, as a fresh host
-        f32 array the caller owns: it views no slot."""
+    def to_host(self, src: torch.Tensor, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The level src, on the device in the slots' dtype, as a host f32
+        array the caller owns: it views no slot. The array is `out` where
+        given, a writeable C-contiguous f32 array of src's shape, else a
+        fresh one."""
         if src.dtype != self.dtype:
             raise ValueError(f"a {src.dtype} level through {self.dtype} slots")
-        out = np.empty(src.shape, np.float32)
+        if out is None:
+            out = np.empty(src.shape, np.float32)
+        elif (out.shape != tuple(src.shape) or out.dtype != np.float32
+              or not out.flags.c_contiguous or not out.flags.writeable):
+            raise ValueError(f"a level of {tuple(src.shape)} into a host array of {out.shape}"
+                             f" in {out.dtype}, contiguous {out.flags.c_contiguous}, writeable"
+                             f" {out.flags.writeable}")
         flat_src, flat_out = src.reshape(-1), torch.from_numpy(out).view(-1)
         pending = collections.deque()  # (slot, start, length) of the chunks in flight
 
@@ -194,6 +207,120 @@ class Staging:
             drain()
         tracing.counts["staged_bytes"] += src.nbytes
         return out
+
+
+class _Ahead:
+    """One set of a Resident: `count` f32 host arrays of `shape`, each with
+    an event the helper sets once it has made and faulted in the array, or
+    given up on it."""
+
+    def __init__(self, shape: tuple, count: int, touch):
+        self.shape, self.count, self.touch = shape, count, touch
+        self.arrays = [None] * count
+        self.ready = [threading.Event() for _ in range(count)]
+        self.error = None  # why the helper gave up on the rest of the set
+        self.taken = 0  # arrays handed out
+        self.cancelled = False  # replaced by another set: the helper makes no more of it
+
+    def make(self) -> None:
+        """On the helper: each array in turn, level 0 first."""
+        for i in range(self.count):
+            if self.error is None and not self.cancelled:
+                try:
+                    a = np.empty(self.shape, np.float32)
+                    self.touch(a)
+                    self.arrays[i] = a
+                except Exception as exc:  # a MemoryError above all: the level falls back
+                    self.error = repr(exc)
+                a = None
+            self.ready[i].set()
+
+
+def _make_ahead(jobs: queue.SimpleQueue) -> None:
+    """A Resident's helper thread: makes each set put on `jobs` until it
+    gets None. It holds no reference to the Resident, which may go."""
+    while (ahead := jobs.get()) is not None:
+        ahead.make()
+        ahead = None  # not held while blocked: a replaced set's arrays go with it
+
+
+class Resident:
+    """Host f32 arrays made ahead of an extract_state on a card, so that its
+    copies out of the staging slots land on resident pages: the first touch
+    of each page of a fresh array costs a fault and the page's zeroing,
+    which set the pace of extract_state (harness/staging_probe.py).
+
+    prepare_state asks for a set (`expect`): one array a level of the state
+    it prepares. A helper thread, one a Resident, started with its first set
+    and ended once the Resident is collected, makes each array, level 0
+    first, and writes one element in every page of it (`touch`, which
+    releases the GIL); it makes no CUDA call. extract_state takes the set's
+    arrays in order (`take`), each once: nothing here touches an array it
+    handed out, so the caller owns it as it owns a fresh one. At most one
+    set is pending; one of another shape or count replaces it. Where there
+    is no array to take (no set, another shape, a second extraction of one
+    state, a helper that failed) the level goes into a fresh array, as
+    without a Resident. tracing.counts gets one of `resident_levels` (the
+    array was ready), `resident_waits` (take waited for the helper) or
+    `fresh_levels` (no array) a level taken."""
+
+    def __init__(self):
+        self._set: Optional[_Ahead] = None  # the pending set
+        self._jobs: Optional[queue.SimpleQueue] = None  # the helper's, made with it
+        self._thread: Optional[threading.Thread] = None
+
+    @staticmethod
+    def touch(a: np.ndarray) -> None:
+        """Fault in every page of the fresh array `a`: one element a page,
+        and the last, written by numpy's strided assignments, which release
+        the GIL, on the helper alone. Spread over torch's intra-op threads,
+        a 562 MB level's faults took 92 ms against 113 on the H100 host, but
+        slowed prepare_state's host copies, which share those threads, twice
+        as much, and longer shots with them (harness/staging_probe.py;
+        PERF.md)."""
+        flat = a.reshape(-1)
+        flat[:: mmap.PAGESIZE // a.itemsize] = 0
+        flat[-1:] = 0
+
+    def expect(self, shape, count: int) -> None:
+        """Start making `count` arrays of `shape`, unless such a set is
+        pending with none taken."""
+        shape = tuple(int(k) for k in shape)
+        pending = self._set
+        if pending is not None:
+            if not pending.taken and (pending.shape, pending.count) == (shape, count):
+                return
+            pending.cancelled = True
+        if self._jobs is None:
+            self._jobs = queue.SimpleQueue()
+            self._thread = threading.Thread(target=_make_ahead, args=(self._jobs,),
+                                            name="tpufdtd_torch.resident", daemon=True)
+            self._thread.start()
+            weakref.finalize(self, self._jobs.put, None)
+        self._set = _Ahead(shape, count, self.touch)
+        self._jobs.put(self._set)
+
+    def take(self, shape) -> Optional[np.ndarray]:
+        """The pending set's next array where it has `shape`, once the helper
+        has made it; None where there is none to take."""
+        ahead = self._set
+        if ahead is None or ahead.shape != tuple(shape):
+            tracing.counts["fresh_levels"] += 1
+            return None
+        i = ahead.taken
+        ahead.taken += 1
+        if ahead.taken == ahead.count:
+            self._set = None
+        waited = not ahead.ready[i].is_set()
+        ahead.ready[i].wait()
+        a, ahead.arrays[i] = ahead.arrays[i], None
+        if a is None:
+            tracing.counts["fresh_levels"] += 1
+            warnings.warn(f"no host array made ahead ({ahead.error}): the level goes into a"
+                          " fresh one", RuntimeWarning, stacklevel=2)
+            return None
+        tracing.counts["resident_waits" if waited else "resident_levels"] += 1
+        return a
 
 
 def _rims_identical(arrs, h: int) -> bool:
@@ -250,6 +377,12 @@ class _Engine:
         """The card's staging slots, made at the first transfer."""
         return Staging(self.device, self.dtype)
 
+    @functools.cached_property
+    def resident(self) -> Resident:
+        """The card's host arrays made ahead of extract_state, made at the
+        first prepare_state there."""
+        return Resident()
+
     def load(self, levels, dsts) -> None:
         """Host levels into their tensors on the card, in the storage dtype,
         through the staging slots (an `h2d` span a level, the host copies
@@ -268,11 +401,12 @@ class _Engine:
 
     def to_host(self, x: torch.Tensor) -> np.ndarray:
         """A level as a host f32 array: from a card through the staging
-        slots, an array the caller owns (`d2h`, the host copies included);
-        elsewhere `.cpu()`."""
+        slots into the next array `resident` made ahead, or a fresh one, an
+        array the caller owns (`d2h`, the host copies and any wait for the
+        array included); elsewhere `.cpu()`."""
         if self.on_card:
             with tracing.span("d2h", x.nbytes):
-                return self.staging.to_host(x)
+                return self.staging.to_host(x, out=self.resident.take(x.shape))
         x = x.float()
         with tracing.span("d2h", 0):
             return x.cpu().numpy()
@@ -287,6 +421,7 @@ class _Engine:
         # the graphs' keys with them (as three blocks, a state's levels came
         # back from the allocator's cache in another order and captured anew)
         shape = np.shape(u_cur)
+        self.resident.expect(shape, 3)
         n = int(np.prod(shape))
         step = -(-n // LEVEL_ALIGN) * LEVEL_ALIGN
         flat = torch.empty(3 * step, dtype=self.dtype, device=self.device)
@@ -429,6 +564,11 @@ class CudaEngine(_Engine):
         return stencil_step.leapfrog_step(C, P, m_args[0], T, grid=self.grid, dt=self.cfg.dt)
 
     def prepare_state(self, u_prev, u_cur, u_target):
+        if self.on_card:
+            # the arrays extract_state will return, made from here on: the
+            # fast ring's two where it may run (a state whose rims differ
+            # takes the exact ring, whose three replace them)
+            self.resident.expect(np.shape(u_cur), 2 if self.sweep_k else 3)
         if self.sweep_k:
             with tracing.span("rims"):
                 fast = _rims_identical([u_prev, u_cur, u_target], self.grid.halo)

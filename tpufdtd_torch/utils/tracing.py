@@ -15,7 +15,10 @@ and nsys/ncu recipes (SURVEY.md §5). Here:
   * `counts`: the process's graph `captures` and `evictions`, the
     bytes its levels moved through the card's staging slots
     (`staged_bytes`) and the times a slot's transfer was not done when the
-    host came back to it (`staging_waits`), and the bytes of the per-point
+    host came back to it (`staging_waits`), the levels extract_state took
+    from a card into an array made ahead and ready (`resident_levels`),
+    made ahead but waited for (`resident_waits`) or made then
+    (`fresh_levels`), and the bytes of the per-point
     media its engines placed on their devices (`medium_bytes`) with the
     host nanoseconds that took, uniformity scans included (`medium_ns`),
     with `reset_counts()`;
